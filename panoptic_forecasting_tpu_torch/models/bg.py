@@ -1,0 +1,129 @@
+"""Background semantic forecaster: FCHarDNet over one-hot reprojected segs.
+
+Counterpart of ``panoptic_forecasting_tpu/models/bg.py`` (reference
+``BGModel``, bg_model.py:15-102), inference only: ``num_inputs`` past
+segmentations one-hot encoded to ``num_classes`` channels each (t-major),
+plus the normalised, masked depth channels, through FCHarDNet-70.
+
+Two routes, as in the JAX package: the unfolded model runs the eval-mode
+BN graph on the assembled input; the folded model (``maybe_fold``, the
+serving default) computes the assembly and the first conv in one fused
+step, ``kernels/stem.py::onehot_stem_conv`` (K2 on the GPU), and runs the
+rest of the network from its output.
+
+The JAX config keys ``packed_stem``/``packed_levels``/``stem_kernel``
+select TPU layouts of the same graph and are accepted and ignored. Every
+shipped config one-hot encodes its inputs; ``convert2onehot: false`` is
+not ported.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..device import DeviceLike, resolve_device
+from ..kernels.stem import assemble_onehot, onehot_stem_conv
+from .hardnet import HarDNet, fold_batchnorm_
+
+
+class BGModel(nn.Module):
+    """cfg is the JAX package's bg config dict ({"model": ..., "data": ...});
+    ``depth_stats`` = (mean, std) of the depth inputs (default 0, 1)."""
+
+    def __init__(self, cfg: Dict[str, Any],
+                 depth_stats: Optional[Tuple[float, float]] = None,
+                 device: DeviceLike = None):
+        super().__init__()
+        m = cfg.get("model", {})
+        d = cfg.get("data", {})
+        self.num_classes = int(d.get("num_classes", 19))
+        self.use_depth_inps = bool(m.get("use_depth_inps"))
+        self.num_inputs = int(m.get("num_inputs", 1))
+        if not m.get("convert2onehot"):
+            raise NotImplementedError("only convert2onehot: true is ported")
+        self.min_depth = float(d.get("min_depth", 0.1))
+        self.max_depth = float(d.get("max_depth", 200.0))
+        fw, fh = m.get("final_w"), m.get("final_h")
+        self.final_size = (int(fh), int(fw)) if fw and fh else None
+        self.fold_bn = bool(m.get("fold_bn", True))
+        in_ch = self.num_inputs * (self.num_classes + int(self.use_depth_inps))
+        mean, std = depth_stats if depth_stats is not None else (0.0, 1.0)
+        self.register_buffer("depth_mean", torch.tensor([float(mean)]))
+        self.register_buffer("depth_std", torch.tensor([float(std)]))
+        self.model = HarDNet(in_ch, n_classes=self.num_classes)
+        self.eval()
+        self.to(resolve_device(device))
+
+    @property
+    def folded(self) -> bool:
+        return self.model.folded
+
+    def maybe_fold(self) -> "BGModel":
+        """The folded (BN-free) copy that serving runs, unless
+        ``model.fold_bn: false`` or already folded (JAX ``maybe_fold``)."""
+        if not self.fold_bn or self.folded:
+            return self
+        out = copy.deepcopy(self)
+        fold_batchnorm_(out.model)
+        return out
+
+    def _prep_inputs(self, inp):
+        """-> (seg int32, depth f32 | None, depth_mask | None); a raw uint16
+        depth block decodes as ``d/256 - 1`` (0 = invalid), clamped."""
+        dev = self.depth_mean.device
+        seg = torch.as_tensor(inp["seg"], device=dev).to(torch.int32)
+        depth = inp.get("depth")
+        dmask = inp.get("depth_mask")
+        depth = torch.as_tensor(depth, device=dev) if depth is not None else None
+        dmask = torch.as_tensor(dmask, device=dev) if dmask is not None else None
+        if depth is not None and depth.dtype == torch.uint16:
+            dep = depth.to(torch.float32) / 256.0 - 1.0
+            dmask = dep > 0
+            depth = torch.where(
+                dmask, dep.clamp(self.min_depth, self.max_depth), -1.0
+            )
+        return seg, depth, dmask
+
+    def _depth_channels(self, depth, dmask):
+        dep = (depth.to(torch.float32) - self.depth_mean) / self.depth_std
+        if dmask is not None:
+            dep = dep * dmask.to(dep.dtype)
+        return dep
+
+    def _assemble(self, seg, depth, dmask) -> torch.Tensor:
+        """-> (B, T·C [+T], H, W) network input, t-major channels."""
+        x = assemble_onehot(seg, self.num_classes)
+        if self.use_depth_inps:
+            x = torch.cat([x, self._depth_channels(depth, dmask)], 1)
+        return x
+
+    def stem_inputs(self, inputs: Dict[str, Any]):
+        """-> (seg int32, depth channels f32 | None): what the fused stem
+        (``onehot_stem_conv``) takes for these inputs."""
+        seg, depth, dmask = self._prep_inputs(inputs)
+        dep = self._depth_channels(depth, dmask) if self.use_depth_inps else None
+        return seg, dep
+
+    @torch.no_grad()
+    def forward(self, inputs: Dict[str, Any], return_argmax: bool = False):
+        """inputs: seg (B, T, H, W) int, depth/depth_mask (B, T, H, W).
+        Returns logits (B, C, H', W') at ``final_size`` (or the input size),
+        or with ``return_argmax`` the (B, H', W') int32 class map."""
+        seg, depth, dmask = self._prep_inputs(inputs)
+        kw = dict(final_size=self.final_size, return_argmax=return_argmax)
+        h, w = seg.shape[-2:]
+        if (self.folded and h % 2 == 0 and w % 2 == 0
+                and (depth is not None) == self.use_depth_inps):
+            # assembly + base.0 in one fused step
+            dep = self._depth_channels(depth, dmask) if self.use_depth_inps else None
+            conv = self.model.base[0].conv
+            y0 = onehot_stem_conv(
+                seg, dep, conv.weight.permute(2, 3, 1, 0), conv.bias,
+                num_classes=self.num_classes,
+            )
+            return self.model(y0.permute(0, 3, 1, 2), skip_stem0=True, **kw)
+        return self.model(self._assemble(seg, depth, dmask), **kw)

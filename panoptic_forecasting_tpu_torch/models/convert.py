@@ -1,0 +1,158 @@
+"""Weight bridge: the JAX package's parameters -> the port's ``state_dict``.
+
+The JAX package keeps its weights as nested dicts of arrays (Flax trees,
+HWIO conv kernels, (in, out) dense kernels). These functions turn them
+into ``state_dict``s of the port's modules, which use the reference
+PyTorch names and layouts (OIHW convs, (out, in) linears, ``nn.GRU`` gate
+rows r | z | n). Pass numpy arrays (``np.asarray`` of each leaf).
+
+They are the exact inverse of the JAX package's
+``models/reference_import.py::{bg,fg}_from_reference``: converting
+back reproduces the JAX variables bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+Tree = Mapping[str, Any]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True, order="C"))
+
+
+def _conv(k) -> torch.Tensor:
+    """HWIO -> OIHW."""
+    return _t(np.asarray(k).transpose(3, 2, 0, 1))
+
+
+def _dense(p: Tree, prefix: str, out: Dict[str, torch.Tensor]):
+    out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv_params(p: Tree, prefix: str, out: Dict[str, torch.Tensor]):
+    out[f"{prefix}.weight"] = _conv(p["kernel"])
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _convlayer(p: Tree, s: Optional[Tree], prefix: str, out):
+    _conv_params(p["conv"], f"{prefix}.conv", out)
+    if "norm" in p:
+        out[f"{prefix}.norm.weight"] = _t(p["norm"]["scale"])
+        out[f"{prefix}.norm.bias"] = _t(p["norm"]["bias"])
+        out[f"{prefix}.norm.running_mean"] = _t(s["norm"]["mean"])
+        out[f"{prefix}.norm.running_var"] = _t(s["norm"]["var"])
+        out[f"{prefix}.norm.num_batches_tracked"] = torch.tensor(0)
+
+
+def _hardnet_stage(p: Tree, s: Optional[Tree], prefix: str, out):
+    """A ConvLayer ({conv[, norm]}) or a HarDBlock ({layer_j: ...})."""
+    if "conv" in p:
+        _convlayer(p, s, prefix, out)
+        return
+    for name, lp in p.items():
+        j = int(name.split("_")[-1])
+        _convlayer(lp, (s or {}).get(name), f"{prefix}.layers.{j}", out)
+
+
+def bg_state_dict_from_jax(variables: Tree,
+                           depth_stats: Optional[Tuple[float, float]] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """BGModel variables -> ``BGModel`` state_dict (``model.*`` +
+    ``depth_mean``/``depth_std``). Takes unfolded ``{params,
+    batch_stats}`` (load into an unfolded BGModel) or folded ``{params}``
+    (load into ``BGModel.maybe_fold()``'s result)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        s = stats.get(name)
+        if name == "finalConv":
+            _conv_params(p, "model.finalConv", out)
+        elif name.startswith("base_"):
+            _hardnet_stage(p, s, f"model.base.{name[5:]}", out)
+        elif name.startswith("conv1x1_up_"):
+            _convlayer(p, s, f"model.conv1x1_up.{name[11:]}", out)
+        elif name.startswith("denseBlocksUp_"):
+            _hardnet_stage(p, s, f"model.denseBlocksUp.{name[14:]}", out)
+        else:
+            raise KeyError(f"unknown HarDNet parameter group {name!r}")
+    mean, std = depth_stats if depth_stats is not None else (0.0, 1.0)
+    out["depth_mean"] = torch.tensor([float(mean)], dtype=torch.float32)
+    out["depth_std"] = torch.tensor([float(std)], dtype=torch.float32)
+    return out
+
+
+def _gru(p: Tree, prefix: str, out):
+    """Flax GRUCell {ir, iz, in, hr, hz, hn} -> nn.GRU layer 0. The flax
+    cell keeps the r/z biases on the input side only (``b_ir + b_hr``):
+    they go to ``bias_ih`` and the hidden r/z biases are 0."""
+    k = {g: np.asarray(p[g]["kernel"]) for g in ("ir", "iz", "in", "hr", "hz", "hn")}
+    out[f"{prefix}.weight_ih_l0"] = _t(np.concatenate([k["ir"].T, k["iz"].T, k["in"].T]))
+    out[f"{prefix}.weight_hh_l0"] = _t(np.concatenate([k["hr"].T, k["hz"].T, k["hn"].T]))
+    out[f"{prefix}.bias_ih_l0"] = _t(np.concatenate(
+        [np.asarray(p[g]["bias"]) for g in ("ir", "iz", "in")]))
+    hn_b = np.asarray(p["hn"]["bias"])
+    out[f"{prefix}.bias_hh_l0"] = _t(np.concatenate(
+        [np.zeros_like(hn_b), np.zeros_like(hn_b), hn_b]))
+
+
+def _traj_head(p: Tree, prefix: str, out):
+    """_TrajOutHead {hidden_i, out} -> Linear or Sequential (Linear at
+    even indices)."""
+    n_hidden = sum(1 for k in p if k.startswith("hidden_"))
+    if n_hidden == 0:
+        _dense(p["out"], prefix, out)
+        return
+    for i in range(n_hidden):
+        _dense(p[f"hidden_{i}"], f"{prefix}.{2 * i}", out)
+    _dense(p["out"], f"{prefix}.{2 * n_hidden}", out)
+
+
+def fg_state_dict_from_jax(params: Tree,
+                           stats: Optional[Mapping[str, Tuple[Sequence[float], Sequence[float]]]] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """FGCore params (+ {"traj"|"depth"|"odom": (mean, std)}) -> ``FGModel``
+    state_dict. The instance-feature dense is reordered from the JAX
+    (h, w, c) flattening to the reference's c-major one."""
+    out: Dict[str, torch.Tensor] = {}
+    for side in ("traj_encoder", "traj_decoder"):
+        _gru(params[side], side, out)
+    for side in ("traj_encoder_out", "traj_decoder_out"):
+        _traj_head(params[side], side, out)
+    _dense(params["traj_feat_out"], "traj_feat_out", out)
+    for name in ("instance_compressor", "mask_encoder_out", "mask_decoder_out"):
+        _conv_params(params[name], name, out)
+    c = np.asarray(params["instance_compressor"]["kernel"]).shape[-1]
+    k = np.asarray(params["instance_feat_model"]["kernel"])
+    hw = math.isqrt(k.shape[0] // c)
+    k = k.reshape(hw, hw, c, -1).transpose(2, 0, 1, 3).reshape(c * hw * hw, -1)
+    _dense(dict(params["instance_feat_model"], kernel=k),
+           "instance_feat_model", out)
+    for side in ("mask_encoder", "mask_decoder"):
+        for cell, p in params[side].items():
+            i = int(cell.split("_")[-1])
+            _conv_params(p["conv"], f"{side}.cell_list.{i}.conv", out)
+    mh = params["mask_head"]
+    for k_ in range(1, 5):
+        _conv_params(mh[f"mask_fcn{k_}"], f"mask_head.mask_fcn{k_}", out)
+    # flax ConvTranspose kernel (kh, kw, I, O), spatially flipped against
+    # torch's (I, O, kh, kw) (torch_import.deconv_kernel).
+    dk = np.asarray(mh["deconv"]["kernel"])
+    out["mask_head.deconv.weight"] = _t(dk.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+    out["mask_head.deconv.bias"] = _t(mh["deconv"]["bias"])
+    _conv_params(mh["predictor"], "mask_head.predictor", out)
+    stats = dict(stats or {})
+    for name, dim in (("traj", 8), ("depth", 2), ("odom", 5)):
+        mean, std = stats.get(name, (np.zeros(dim), np.ones(dim)))
+        out[f"{name}_mean"] = _t(np.asarray(mean, np.float32).reshape(-1))
+        out[f"{name}_std"] = _t(np.asarray(std, np.float32).reshape(-1))
+    return out

@@ -1,0 +1,276 @@
+"""Foreground forecaster: coupled GRU + ConvLSTM rollouts over MaskRCNN
+ROI features, then the mask head. Inference only.
+
+Counterpart of ``panoptic_forecasting_tpu/models/fg.py`` (reference
+``FGModel``, fg_model.py:21-746): a trajectory GRU encoder over
+[normalised box state ⊕ depth ⊕ compressed instance features ⊕ validity
+⊕ odometry]; a ConvLSTM encoder over the ROI features ⊕ a broadcast
+trajectory feature; re-anchoring at the last input frame; a coupled
+decoder of ``out_t`` steps (Python loops in place of the JAX ``nn.scan``)
+in which each branch feeds the other; the mask head at the requested
+output step, its class channel selected.
+
+Only the model options the shipped configs use are ported (GRU, f32,
+instance and trajectory features both on); ``only_loc_feats``,
+``no_traj_inst_feats``, ``no_mask_traj_feats``, ``only_input_odometry``,
+``use_bbox_ulbr``, an LSTM or bf16 raise ``NotImplementedError``.
+
+Submodule and buffer names follow the reference ``state_dict``
+(``traj_encoder.weight_ih_l0``, ``mask_encoder.cell_list.{i}.conv``,
+``mask_head.*``, ``traj_mean``, ...). Layout is NCHW inside; ROI feats
+arrive NCHW (or NHWC, moved), and ``instance_feat_model`` flattens them
+c-major as the reference does.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..device import DeviceLike, resolve_device
+from .convlstm import ConvLSTMStack
+from .mask_head import MaskRCNNConvUpsampleHead
+
+ODOM_DIM = 5
+Stats = Mapping[str, Tuple[Sequence[float], Sequence[float]]]
+
+
+def expand_traj_mask(mask, vel_mask=None, result_size: int = 4) -> torch.Tensor:
+    """(B, T) validity -> (B, T, 2·result_size) loc + velocity mask;
+    velocity needs both adjacent frames valid and is invalid at t = 0."""
+    mask = mask.to(torch.float32)
+    loc = mask[..., None].expand(mask.shape + (result_size,))
+    if vel_mask is None:
+        vel_mask = torch.cat(
+            [torch.zeros_like(mask[:, :1]), mask[:, 1:] * mask[:, :-1]], 1
+        )
+    vel = vel_mask.to(torch.float32)[..., None].expand(mask.shape + (result_size,))
+    return torch.cat([loc, vel], -1)
+
+
+class GRUCell(nn.Module):
+    """One torch ``nn.GRU`` layer (gate rows r | z | n), stepped by hand."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih_l0 = nn.Parameter(torch.empty(3 * hidden, in_features))
+        self.weight_hh_l0 = nn.Parameter(torch.empty(3 * hidden, hidden))
+        self.bias_ih_l0 = nn.Parameter(torch.zeros(3 * hidden))
+        self.bias_hh_l0 = nn.Parameter(torch.zeros(3 * hidden))
+        bound = hidden ** -0.5
+        for w in (self.weight_ih_l0, self.weight_hh_l0):
+            nn.init.uniform_(w, -bound, bound)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        i_r, i_z, i_n = F.linear(x, self.weight_ih_l0, self.bias_ih_l0).chunk(3, -1)
+        h_r, h_z, h_n = F.linear(h, self.weight_hh_l0, self.bias_hh_l0).chunk(3, -1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h
+
+
+def _traj_out_head(in_f: int, hidden: int, out_size: int,
+                   num_layers: int) -> nn.Module:
+    """Linear, or Sequential[(Linear, ReLU) * (n-1), Linear] (fg_model.py:
+    118-132)."""
+    if num_layers == 1:
+        return nn.Linear(in_f, out_size)
+    mods = []
+    for i in range(num_layers - 1):
+        mods += [nn.Linear(in_f if i == 0 else hidden, hidden), nn.ReLU()]
+    mods.append(nn.Linear(hidden, out_size))
+    return nn.Sequential(*mods)
+
+
+class FGModel(nn.Module):
+    """cfg is the JAX package's fg config dict; ``stats`` maps "traj"
+    (8-d), "depth" (2-d) and "odom" (5-d) to (mean, std), the data card's
+    normalisation statistics (defaults 0 and 1)."""
+
+    def __init__(self, cfg: Dict[str, Any], stats: Optional[Stats] = None,
+                 device: DeviceLike = None):
+        super().__init__()
+        m = cfg.get("model", {})
+        mh = m.get("mask_head", {}) or {}
+        unported = [k for k in ("only_loc_feats", "no_traj_inst_feats",
+                                "no_mask_traj_feats", "only_input_odometry")
+                    if m.get(k)]
+        if cfg.get("use_bbox_ulbr"):
+            unported.append("use_bbox_ulbr")
+        if m.get("rnn_type", "gru") != "gru":
+            unported.append(f"rnn_type {m['rnn_type']}")
+        if m.get("compute_dtype") in ("bfloat16", "bf16"):
+            unported.append("compute_dtype bf16")
+        if unported:
+            raise NotImplementedError(f"fg options not ported: {unported}")
+        self.use_odometry = bool(m.get("use_odometry"))
+        self.use_depth_inp = bool(m.get("use_depth_inp"))
+        self.use_depth_sorting = bool(m.get("use_depth_sorting"))
+        self.depth_dim = 2 if self.use_depth_inp else 0
+        out_size = 8 + self.depth_dim
+        rnn_hidden = int(m.get("rnn_hidden", 128))
+        inst_ch = int(m.get("instance_feat_channels", 8))
+        inst_hidden = int(m.get("instance_feat_hidden", 64))
+        tf_ch = int(m.get("traj_feat_channels", 16))
+        n_lstm = int(m.get("num_convlstm_layers", 1))
+        n_out = int(m.get("num_traj_out_layers", 1))
+        c = self.mask_feat_channels = int(m.get("mask_feat_channels", 256))
+        hw = self.mask_feat_hw = int(m.get("mask_feat_hw", 14))
+        conv_dim = int(mh.get("conv_dim", c))
+
+        odom = ODOM_DIM if self.use_odometry else 0
+        self.traj_encoder = GRUCell(out_size + inst_hidden + 1 + odom, rnn_hidden)
+        self.traj_decoder = GRUCell(out_size + inst_hidden + odom, rnn_hidden)
+        self.traj_encoder_out = _traj_out_head(rnn_hidden, rnn_hidden,
+                                               out_size, n_out)
+        self.traj_decoder_out = _traj_out_head(rnn_hidden, rnn_hidden,
+                                               out_size, n_out)
+        self.traj_feat_out = nn.Linear(rnn_hidden, tf_ch)
+        self.instance_compressor = nn.Conv2d(c, inst_ch, 1)
+        self.instance_feat_model = nn.Linear(inst_ch * hw * hw, inst_hidden)
+        mask_in = c + tf_ch
+        self.mask_encoder = ConvLSTMStack(mask_in, c, n_lstm)
+        self.mask_decoder = ConvLSTMStack(mask_in, c, n_lstm)
+        self.mask_encoder_out = nn.Conv2d(c, c, 1)
+        self.mask_decoder_out = nn.Conv2d(c, c, 1)
+        self.mask_head = MaskRCNNConvUpsampleHead(c, conv_dim)
+
+        stats = dict(stats or {})
+        for name, dim in (("traj", 8), ("depth", 2), ("odom", ODOM_DIM)):
+            mean, std = stats.get(name, (np.zeros(dim), np.ones(dim)))
+            self.register_buffer(f"{name}_mean", torch.tensor(
+                np.asarray(mean, np.float32).reshape(-1)))
+            self.register_buffer(f"{name}_std", torch.tensor(
+                np.asarray(std, np.float32).reshape(-1)))
+        self.eval()
+        self.to(resolve_device(device))
+
+    # -- normalisation -----------------------------------------------------
+    def _full_stats(self):
+        mean, std = self.traj_mean, self.traj_std
+        if self.use_depth_inp:
+            mean = torch.cat([mean, self.depth_mean])
+            std = torch.cat([std, self.depth_std])
+        return mean, torch.where(std == 0, torch.ones_like(std), std)
+
+    def _norm_traj(self, trajs, depths):
+        x = torch.cat([trajs, depths], -1) if self.use_depth_inp else trajs
+        mean, std = self._full_stats()
+        return (x - mean) / std
+
+    def _unnorm_traj(self, x):
+        mean, std = self._full_stats()
+        return x * std + mean
+
+    # -- submodule steps ---------------------------------------------------
+    def compress_inst_feats(self, feats, mask):
+        """(..., C, hw, hw) -> (..., instance_feat_hidden), masked."""
+        lead = feats.shape[:-3]
+        x = F.relu(self.instance_compressor(feats.reshape((-1,) + feats.shape[-3:])))
+        x = self.instance_feat_model(x.reshape(x.shape[0], -1))
+        return x.reshape(lead + (-1,)) * mask
+
+    def _with_traj_feat(self, hidden, feats):
+        """concat([broadcast traj_feat_out(hidden), feats]) on channels."""
+        tf = self.traj_feat_out(hidden)
+        hw = self.mask_feat_hw
+        tf = tf[..., None, None].expand(tf.shape + (hw, hw))
+        return torch.cat([tf, feats], -3)
+
+    def _rollout(self, enc_traj_inp, feats, odom_out, out_t: int):
+        """enc_traj_inp (B, T, D); feats (B, T, C, hw, hw); odom_out
+        (B, out_t, 5) or None -> (traj_preds (B, out_t+1, out_size),
+        feat_preds (B, out_t+1, C, hw, hw))."""
+        b, t_in = enc_traj_inp.shape[:2]
+        h = enc_traj_inp.new_zeros((b, self.traj_encoder.hidden))
+        enc_outs = []
+        for t in range(t_in):
+            h = self.traj_encoder(h, enc_traj_inp[:, t])
+            enc_outs.append(h)
+        enc_mask_inp = self._with_traj_feat(torch.stack(enc_outs, 1), feats)
+        hw = self.mask_feat_hw
+        states = self.mask_encoder.init_state(b, hw, hw, feats)
+        for t in range(t_in):
+            states, mask_out = self.mask_encoder(states, enc_mask_inp[:, t])
+
+        # Re-anchor at the most recent input frame (fg_model.py:279-283).
+        cur_traj = self.traj_encoder_out(enc_outs[-1])
+        cur_feats = self.mask_encoder_out(mask_out)
+        trajs, feat_steps = [cur_traj], [cur_feats]
+        ones = cur_traj.new_ones((b, 1))
+        for t in range(out_t):
+            inp = [cur_traj, self.compress_inst_feats(cur_feats, ones)]
+            if odom_out is not None:
+                inp.append(odom_out[:, t])
+            h = self.traj_decoder(h, torch.cat(inp, -1))
+            cur_traj = cur_traj + self.traj_decoder_out(h)
+            states, h_last = self.mask_decoder(
+                states, self._with_traj_feat(h, cur_feats)
+            )
+            cur_feats = self.mask_decoder_out(h_last)
+            trajs.append(cur_traj)
+            feat_steps.append(cur_feats)
+        return torch.stack(trajs, 1), torch.stack(feat_steps, 1)
+
+    @torch.no_grad()
+    def forward(self, inputs: Dict[str, Any], out_t: int) -> Dict[str, torch.Tensor]:
+        """inputs: the dense fg batch with a leading instance axis
+        (trajectories, bbox_masks, bbox_vel_masks, depths, depth_masks,
+        feats, odometry, classes, output_inds). Returns JAX layouts:
+        trajectories (N, out_t+1, D), mask feats NHWC, masks (N, 28, 28)."""
+        dev = self.traj_mean.device
+
+        def f32(name):
+            return torch.as_tensor(inputs[name], device=dev).to(torch.float32)
+
+        trajs = f32("trajectories")[..., :8]
+        feats = f32("feats")
+        c = self.mask_feat_channels
+        if feats.shape[-3] != c and feats.shape[-1] == c:  # NHWC -> NCHW
+            feats = feats.movedim(-1, -3)
+        inp_t = trajs.shape[1]
+        bbox_masks = f32("bbox_masks")[:, :inp_t]
+        vel_masks = f32("bbox_vel_masks")[:, :inp_t]
+        depths = (f32("depths")[..., : self.depth_dim]
+                  if self.use_depth_inp else None)
+        normalized = self._norm_traj(trajs, depths)
+        emask = expand_traj_mask(bbox_masks, vel_mask=vel_masks)
+        if self.use_depth_inp:
+            dmask = f32("depth_masks")
+            dmask = dmask.reshape(dmask.shape[0], dmask.shape[1])
+            emask = torch.cat([emask, expand_traj_mask(dmask, result_size=1)], -1)
+        normalized = normalized * emask
+
+        enc = [normalized, self.compress_inst_feats(feats, bbox_masks[..., None]),
+               bbox_masks[..., None]]
+        odom_out = None
+        if self.use_odometry:
+            odom = f32("odometry")
+            odom = (odom - self.odom_mean) / torch.where(
+                self.odom_std == 0, torch.ones_like(self.odom_std),
+                self.odom_std)
+            enc.append(odom[:, :inp_t])
+            odom_out = odom[:, inp_t: inp_t + out_t]
+        traj_preds, feat_preds = self._rollout(
+            torch.cat(enc, -1), feats, odom_out, int(out_t)
+        )
+
+        out_inds = torch.as_tensor(inputs["output_inds"], device=dev).reshape(-1).long()
+        rows = torch.arange(traj_preds.shape[0], device=dev)
+        out_feats = feat_preds[:, -out_t:][rows, out_inds]
+        mask_logits = self.mask_head(out_feats)
+        classes = torch.as_tensor(inputs["classes"], device=dev).reshape(-1).long()
+        masks = mask_logits[rows, classes.clamp(0, 7)]
+        return {
+            "normalized_trajectory": traj_preds,
+            "unnormalized_trajectory": self._unnorm_traj(traj_preds),
+            "mask_feats": feat_preds.permute(0, 1, 3, 4, 2),
+            "output_feats": out_feats.permute(0, 2, 3, 1),
+            "masks": masks,
+        }

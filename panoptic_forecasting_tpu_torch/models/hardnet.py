@@ -1,0 +1,225 @@
+"""FCHarDNet-70 semantic segmentation network, NCHW.
+
+Counterpart of ``panoptic_forecasting_tpu/models/hardnet.py``, plain
+graph only (reference ``models/bg/hardnet.py``, itself the public
+FCHarDNet): a 4-conv stem, 5 HarDBlocks with 1×1 transitions and 2×2
+average-pool downsampling, a 4-stage decoder of align-corners bilinear
+upsample + skip concat + 1×1 halving conv + HarDBlock, a 1×1 class head
+and a bilinear resize to the input (or ``final_size``).
+
+Module names follow the reference's ``state_dict`` (``base.{i}`` with the
+parameterless AvgPool slots counted, ``conv1x1_up.{j}``,
+``denseBlocksUp.{j}``, ``finalConv``), so reference checkpoints and the
+JAX importer (``reference_import.bg_from_reference``) line up by name.
+The JAX package's TPU layout variants (``packed_*``, ``stem_s2d``) are
+exact re-indexings of this graph and are not ported.
+
+``folded=True`` is the inference graph: every ConvLayer is a conv with
+bias and no BatchNorm (``fold_batchnorm_``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+# FCHarDNet-70 (hardnet.py:261-327)
+FIRST_CH = (16, 24, 32, 48)
+CH_LIST = (64, 96, 160, 224, 320)
+GRMUL = 1.7
+GR = (10, 16, 18, 24, 32)
+N_LAYERS = (4, 4, 8, 8, 8)
+
+
+def hard_block_links(n_layers: int, base_ch: int, growth: int, grmul: float):
+    """Per-layer (out_ch, in_ch, link) + block out channels (the harmonic
+    link rule, hardnet.py:177-194)."""
+
+    def get_link(layer):
+        if layer == 0:
+            return base_ch, 0, []
+        out_channels = float(growth)
+        link = []
+        for i in range(10):
+            dv = 2 ** i
+            if layer % dv == 0:
+                link.append(layer - dv)
+                if i > 0:
+                    out_channels *= grmul
+        out_channels = int(int(out_channels + 1) / 2) * 2
+        in_channels = sum(get_link(l)[0] for l in link)
+        return out_channels, in_channels, link
+
+    layers = [get_link(i + 1) for i in range(n_layers)]
+    out_ch = sum(
+        oc for i, (oc, _, _) in enumerate(layers)
+        if i % 2 == 0 or i == n_layers - 1
+    )
+    return layers, out_ch
+
+
+def _interp_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """(n_out, n_in) align_corners=True linear-interpolation matrix: row
+    o holds (1 - w) at lo(o) and w at hi(o)."""
+    if n_out == 1 or n_in == 1:
+        r = torch.zeros((n_out, n_in), dtype=torch.float32, device=device)
+        r[:, 0] = 1
+        return r
+    src = torch.arange(n_out, dtype=torch.float32, device=device) * (n_in - 1) / (n_out - 1)
+    lo = torch.floor(src).to(torch.int64).clamp(0, n_in - 1)
+    hi = (lo + 1).clamp(0, n_in - 1)
+    w = src - lo.to(torch.float32)
+    cols = torch.arange(n_in, device=device)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return (torch.where(cols == lo[:, None], (1 - w)[:, None], zero)
+            + torch.where(cols == hi[:, None], w[:, None], zero))
+
+
+def resize_bilinear_hw(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Align-corners bilinear resize of (..., H, W) as two small matrix
+    products; equals ``F.interpolate(mode='bilinear', align_corners=True)``
+    to f32 rounding."""
+    h_in, w_in = x.shape[-2:]
+    h_out, w_out = size
+    if h_out != h_in:
+        x = torch.matmul(_interp_matrix(h_in, h_out, x.device), x)
+    if w_out != w_in:
+        x = torch.matmul(x, _interp_matrix(w_in, w_out, x.device).t())
+    return x
+
+
+class ConvLayer(nn.Module):
+    """conv (no bias, k//2 padding) -> BN -> ReLU (hardnet.py:16-25); with
+    ``folded`` a conv with bias -> ReLU."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1, folded: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, kernel // 2,
+                              bias=folded)
+        self.norm = None if folded else nn.BatchNorm2d(out_ch, eps=1e-5)
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        return F.relu(x)
+
+
+class HarDBlock(nn.Module):
+    def __init__(self, in_ch: int, growth: int, grmul: float, n_layers: int,
+                 folded: bool = False):
+        super().__init__()
+        specs, self.out_channels = hard_block_links(
+            n_layers, in_ch, growth, grmul
+        )
+        self.links = [link for _, _, link in specs]
+        self.layers = nn.ModuleList(
+            ConvLayer(ic, oc, folded=folded) for oc, ic, _ in specs
+        )
+
+    def forward(self, x):
+        outs = [x]
+        for link, layer in zip(self.links, self.layers):
+            tin = [outs[l] for l in link]
+            outs.append(layer(torch.cat(tin, 1) if len(tin) > 1 else tin[0]))
+        t = len(outs)
+        return torch.cat(
+            [outs[i] for i in range(t) if i == t - 1 or i % 2 == 1], 1
+        )
+
+
+class HarDNet(nn.Module):
+    """FCHarDNet-70 over (B, C_in, H, W); logits at the input (or
+    ``final_size``) resolution, or their argmax."""
+
+    def __init__(self, in_channels: int, n_classes: int = 19,
+                 folded: bool = False):
+        super().__init__()
+        self.folded = folded
+        first_ch, ch_list, grmul, gr, n_layers = FIRST_CH, CH_LIST, GRMUL, GR, N_LAYERS
+        blks = len(n_layers)
+        base: List[nn.Module] = [
+            ConvLayer(in_channels, first_ch[0], 3, 2, folded),
+            ConvLayer(first_ch[0], first_ch[1], 3, 1, folded),
+            ConvLayer(first_ch[1], first_ch[2], 3, 2, folded),
+            ConvLayer(first_ch[2], first_ch[3], 3, 1, folded),
+        ]
+        skip_chs = []
+        self.skip_after = []  # base indices whose output feeds the decoder
+        ch = first_ch[3]
+        for i in range(blks):
+            blk = HarDBlock(ch, gr[i], grmul, n_layers[i], folded)
+            ch = blk.out_channels
+            base.append(blk)
+            if i < blks - 1:
+                skip_chs.append(ch)
+                self.skip_after.append(len(base) - 1)
+            base.append(ConvLayer(ch, ch_list[i], 1, 1, folded))
+            ch = ch_list[i]
+            if i < blks - 1:
+                # torch keeps the AvgPool in the ModuleList: it takes an index
+                base.append(nn.AvgPool2d(2, 2))
+        self.base = nn.ModuleList(base)
+        ups, dense_up = [], []
+        prev_ch = ch
+        for i in range(blks - 2, -1, -1):
+            cur = prev_ch + skip_chs[i]
+            ups.append(ConvLayer(cur, cur // 2, 1, 1, folded))
+            blk = HarDBlock(cur // 2, gr[i], grmul, n_layers[i], folded)
+            dense_up.append(blk)
+            prev_ch = blk.out_channels
+        self.conv1x1_up = nn.ModuleList(ups)
+        self.denseBlocksUp = nn.ModuleList(dense_up)
+        self.finalConv = nn.Conv2d(prev_ch, n_classes, 1, bias=True)
+
+    def forward(self, x, final_size: Optional[Tuple[int, int]] = None,
+                return_argmax: bool = False, skip_stem0: bool = False):
+        """x (B, C_in, H, W) -> logits (B, n_classes, H', W') or, with
+        ``return_argmax``, the (B, H', W') int32 argmax (first index on
+        ties). ``skip_stem0``: x is already base.0's output (the fused
+        one-hot stem computed it)."""
+        if skip_stem0:
+            size_in = (x.shape[-2] * 2, x.shape[-1] * 2)
+        else:
+            size_in = (x.shape[-2], x.shape[-1])
+        skips = []
+        for i, layer in enumerate(self.base):
+            if i == 0 and skip_stem0:
+                continue
+            x = layer(x)
+            if i in self.skip_after:
+                skips.append(x)
+        for up, blk in zip(self.conv1x1_up, self.denseBlocksUp):
+            skip = skips.pop()
+            x = resize_bilinear_hw(x, tuple(skip.shape[-2:]))
+            x = blk(up(torch.cat([x, skip], 1)))
+        logits = self.finalConv(x)
+        out = resize_bilinear_hw(logits, final_size or size_in)
+        if return_argmax:
+            return torch.argmax(out, 1).to(torch.int32)
+        return out
+
+
+def fold_batchnorm_(net: HarDNet) -> HarDNet:
+    """Fold every BN of ``net`` into its conv, in place (-> ``folded``):
+
+        weight' = weight · γ/√(var+ε),   bias' = β − mean · γ/√(var+ε)
+
+    (JAX ``fold_batchnorm_variables``; the reference's dead
+    ``v2_transform``, hardnet.py:341-351). Exact up to f32 rounding.
+    """
+    net.folded = True
+    for module in net.modules():
+        if isinstance(module, ConvLayer) and module.norm is not None:
+            conv, bn = module.conv, module.norm
+            with torch.no_grad():
+                scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+                conv.weight.mul_(scale[:, None, None, None])
+                conv.bias = nn.Parameter(bn.bias - bn.running_mean * scale)
+            module.norm = None
+    return net

@@ -1,0 +1,122 @@
+"""Point-cloud transform: reproject past segmentations into the target
+camera with depth and cumulative ego-motion, then z-buffer splat.
+
+Counterpart of ``panoptic_forecasting_tpu/models/pc_transform.py``
+(reference ``PCTransformModel.predict``, pc_transform_model.py:26-150).
+The 4-matrix chain collapses per (batch, frame) into one affine map
+A = E⁻¹·target_T·E, combined with K⁻¹ so the per-pixel work is a
+multiply-add over the pixel grid; the splat is the packed z-buffer
+(``kernels/zbuffer.py``, K1 on the GPU). Everything is float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.zbuffer import zbuffer_splat
+
+
+def _inv(a: torch.Tensor) -> torch.Tensor:
+    """Inverse by LU with partial pivoting and two triangular solves, the
+    LAPACK getrf + getrs route the JAX package's ``jnp.linalg.inv`` takes
+    on the CPU (``torch.linalg.inv`` rounds some entries differently)."""
+    p, lower, upper = torch.linalg.lu(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype).expand_as(a)
+    y = torch.linalg.solve_triangular(lower, p.mT @ eye, upper=False,
+                                      unitriangular=True)
+    return torch.linalg.solve_triangular(upper, y, upper=True)
+
+
+def _camera_maps(K, extrinsics, target_T):
+    """Per (batch, frame): B = R·K⁻¹ (B, T, 3, 3) and trans (B, T, 3) of
+    A = E⁻¹·target_T·E, computed on the host in f32.
+
+    The chain is tiny, and computing it in one place makes the GPU and
+    the CPU reproject bit-identically: scenes with a pure translation put
+    many points exactly on integer pixel coordinates, where the last bit
+    decides whether a point splats to one column or two.
+    """
+    K, E, T = (x.detach().to("cpu", torch.float32) for x in (K, extrinsics, target_T))
+    A = torch.einsum("bij,btjk,bkl->btil", _inv(E), T, E)
+    Bm = torch.einsum("btij,bjk->btik", A[..., :3, :3], _inv(K))
+    return Bm, A[..., :3, 3]
+
+
+def _fma(a, b, c):
+    """a·b + c rounded once to f32 (a fused multiply-add).
+
+    XLA contracts the multiply-adds of this projection into FMAs on the
+    CPU; the port rounds the same way. The product and sum are taken in
+    float64 (the product of two f32 is exact there), so every device
+    gives the same bits.
+    """
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _reproject_points(depth, K, extrinsics, target_T, height: int,
+                      width: int):
+    """Project every pixel of (B, T, H, W) depth into the target camera.
+
+    K (B, 3, 3), extrinsics (B, 4, 4), target_T (B, T, 4, 4).
+    Returns (uv (B, T, H, W, 2), z (B, T, H, W)).
+    """
+    dev = depth.device
+    Bm, trans = _camera_maps(K, extrinsics, target_T)
+    Bm, trans = Bm.to(dev), trans.to(dev)
+    K = K.to(dev, torch.float32)
+    u = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    v = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    bc = (slice(None), slice(None), None, None)
+
+    def row(i):
+        # x_target = depth * (B @ [u, v, 1]) + trans, one FMA per step
+        bp = _fma(Bm[..., i, 1][bc], v, Bm[..., i, 0][bc] * u) + Bm[..., i, 2][bc]
+        return _fma(depth, bp, trans[..., i][bc])
+
+    x, y, z = row(0), row(1), row(2)
+    tiny = torch.where(z < 0, -1e-8, 1e-8)
+    safe_z = torch.where(z.abs() < 1e-8, tiny, z)
+    kb = (slice(None), None, None, None)
+    uv = torch.stack(
+        [_fma(x / safe_z, K[:, 0, 0][kb], K[:, 0, 2][kb]),
+         _fma(y / safe_z, K[:, 1, 1][kb], K[:, 1, 2][kb])],
+        -1,
+    )
+    return uv, z
+
+
+def reproject(seg, depth, depth_mask, K, extrinsics, target_T, *,
+              height: int, width: int):
+    """Every input pixel as a point of the target camera, flattened per
+    batch: (uv (B, N, 2), z (B, N), label (B, N), valid (B, N)), N = T·H·W.
+    A point is valid with valid input depth, z > 0 and on screen."""
+    uv, z = _reproject_points(depth.to(torch.float32), K, extrinsics,
+                              target_T, height, width)
+    valid = (
+        depth_mask.bool()
+        & (z > 0)
+        & (uv[..., 0] >= 0)
+        & (uv[..., 0] < width)
+        & (uv[..., 1] >= 0)
+        & (uv[..., 1] < height)
+    )
+    b = depth.shape[0]
+    n = depth.shape[1] * height * width
+    return (uv.reshape(b, n, 2), z.reshape(b, n), seg.reshape(b, n),
+            valid.reshape(b, n))
+
+
+def pc_transform_predict(seg, depth, depth_mask, K, extrinsics, target_T, *,
+                         height: int, width: int):
+    """Batched reprojection + splat.
+
+    seg (B, T, H, W) int labels in [0, 255]; depth/depth_mask (B, T, H, W)
+    on the compute device; K (B, 3, 3), extrinsics (B, 4, 4) and target_T
+    (B, T, 4, 4) anywhere (the camera chain is computed on the host).
+    Returns {"seg": (B, H, W), "depth": (B, H, W)}: the T input frames'
+    points z-buffered into one canvas per batch.
+    """
+    uv, z, label, valid = reproject(seg, depth, depth_mask, K, extrinsics,
+                                    target_T, height=height, width=width)
+    lab, dep = zbuffer_splat(uv, z, label, valid, height=height, width=width)
+    return {"seg": lab, "depth": dep}

@@ -1,0 +1,92 @@
+"""Shared set-up of the port parity tests (tests/test_torch_port_*.py);
+it holds no tests. The synthetic fg scene fixture of
+tests/test_forecast_fused.py, a JAX FGModel initialised on it, and the
+same weights in the port's FGModel."""
+
+import jax
+import numpy as np
+
+from panoptic_forecasting_tpu.core import build_dataset, build_model
+from panoptic_forecasting_tpu.data.synthetic import write_fg_fixture
+from panoptic_forecasting_tpu_torch.models.convert import fg_state_dict_from_jax
+from panoptic_forecasting_tpu_torch.models.fg import FGModel
+
+# The narrow fg widths of tests/test_forecast_fused.py.
+FG_MODEL = {
+    "mask_feat_channels": 32,
+    "mask_feat_hw": 7,
+    "mask_head": {"conv_dim": 32},
+    "instance_feat_channels": 8,
+    "instance_feat_hidden": 32,
+    "loss_type": "smoothl1",
+    "num_convlstm_layers": 1,
+    "num_traj_out_layers": 1,
+    "rnn_hidden": 32,
+    "rnn_type": "gru",
+    "traj_feat_channels": 16,
+    "use_depth_inp": True,
+    "use_odometry": True,
+    "use_depth_sorting": True,
+}
+
+
+def fg_fixture(root, model_overrides=None):
+    """-> (cfg, jax FGModel, its variables, one scene batch (S, N, ...))."""
+    write_fg_fixture(root, n_scenes=3, max_instances=3, feat_channels=32,
+                     feat_hw=7)
+    cfg = {
+        "task": "fg",
+        "seed": 0,
+        "working_dir": root + "/run",
+        "data": {
+            "dataset_type": "fg_scene",
+            "data_splits": ["val"],
+            "data_dir": root,
+            "depth_dir": root,
+            "feats_dir": root,
+            "info_3d_dir": root,
+            "use_3d_info": True,
+            "max_depth": 200,
+            "require_most_recent": True,
+            "instance_pad_multiple": 4,
+        },
+        "model": dict(FG_MODEL, **(model_overrides or {})),
+        "training": {"batch_size": 2},
+    }
+    inst_cfg = dict(cfg, data=dict(cfg["data"], dataset_type="fg_instance",
+                                   data_splits=["train", "val"]))
+    inst_data = build_dataset(inst_cfg)
+    data = build_dataset(cfg, test=True)
+    model = build_model(cfg, inst_data.card)
+    batch = next(iter(data.loader("val", cfg, test=True)))
+
+    def f(x):
+        x = np.asarray(x)
+        return x.reshape((-1,) + x.shape[2:])
+
+    init_batch = {
+        "inputs": {k: f(v) for k, v in batch["inputs"].items()
+                   if k not in ("background", "valid")},
+        "labels": {
+            "trajectories": f(batch["labels"]["trajectories"]),
+            "output_inds": np.asarray(batch["labels"]["output_inds"]).reshape(-1),
+        },
+    }
+    variables = jax.jit(lambda r: model.init(r, init_batch))(jax.random.PRNGKey(0))
+    return cfg, model, jax.tree_util.tree_map(np.asarray, variables), batch
+
+
+def fg_stats(jax_model):
+    """The JAX FGModel's normalisation statistics, as the port takes them."""
+    return {
+        "traj": (np.asarray(jax_model.traj_mean), np.asarray(jax_model.traj_std)),
+        "depth": (np.asarray(jax_model.depth_mean), np.asarray(jax_model.depth_std)),
+        "odom": (np.asarray(jax_model.odom_mean), np.asarray(jax_model.odom_std)),
+    }
+
+
+def port_fg(cfg, jax_model, variables, device="cpu"):
+    stats = fg_stats(jax_model)
+    model = FGModel(cfg, stats=stats, device=device)
+    model.load_state_dict(fg_state_dict_from_jax(variables["params"], stats))
+    return model
