@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the single-call panoptic forecast
-(``panoptic_forecasting_tpu_torch.eval.build_forecast_step``), once at
+Drives the port's main paths once each. The single-call panoptic
+forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
 foreground model of configs/fg/fg_val_short.yaml (rnn_hidden 128, 2
 ConvLSTM layers, 2 trajectory-output layers, 256x14x14 ROI features,
 mask head conv_dim 256), 8 instance slots, out_t = 3. Weights are random
 from a fixed seed; inputs are synthetic, made as bench.py's fused
-benchmark makes them.
+benchmark makes them. The profiling entry points of the kernels off the
+forecast path, K3 (``scripts/prof_minwin.py``, 3 frames of 1024x2048 =
+6.29 M entries) and K4 (``scripts/prof_strided_load.py``, 8x2048), at
+their scripts' sizes, and the exact z-buffer (``PCTransformModel``).
 
 Phases (any failure exits non-zero):
   1. build both CUDA kernels from csrc/ with nvcc (in parallel);
@@ -24,10 +27,27 @@ Phases (any failure exits non-zero):
   5. the same step on the GPU and on the CPU at 256x512: ids equal,
      panoptic maps differing on < 1e-3 of pixels;
   6. timings with CUDA events after warm-up (kernels, their plain
-     versions, one PyTorch library call each, one whole step).
+     versions, one PyTorch library call each, one whole step);
+  7. K3 (place_minwin) on the 6.29 M-entry stream of its entry point:
+     canvas bit-equal to its plain version and to K1, overflow equal to
+     the plain version's; edge cases (key 0, sentinels, negative groups,
+     32 equal groups in a warp, N not a multiple of 32, N = 0);
+  8. the three K4 probes (strided_load) bit-equal to their plain versions
+     on arange(8·2048) and on a seeded random (64, 4096), both lane
+     offsets;
+  9. the exact z-buffer through PCTransformModel at 1024x2048, with
+     panoptic ids (>= 11000) and with an RGB payload, timed, sort equal
+     to scatter; GPU against CPU at 256x512, bit-equal;
+ 10. the entry points of K3 and K4 (scripts/prof_minwin.py,
+     scripts/prof_strided_load.py) with their launch counters set to 0
+     just before each and read just after: each kernel must have
+     launched;
+ 11. timings of K3 and K4 (kernels, plain versions, library calls), and
+     each kernel's device time from torch.profiler (``device_ms``: CUDA
+     events around back-to-back calls of a small kernel time the host).
 
 Prints the card's name and power limit, one JSON line describing every
-kernel, and last a JSON line {"ok": true, "device": {...}}. Exits non-zero
+kernel (K1-K3 and each K4 probe), and last a JSON line {"ok": true, "device": {...}}. Exits non-zero
 without a result when CUDA is unavailable.
 """
 
@@ -46,18 +66,23 @@ from torch.profiler import ProfilerActivity, profile
 
 from panoptic_forecasting_tpu_torch.eval import build_forecast_step
 from panoptic_forecasting_tpu_torch.geometry import rdf_T_flu, unicycle_now_T_prev
-from panoptic_forecasting_tpu_torch.kernels import build
+from panoptic_forecasting_tpu_torch.kernels import build, strided_load
+from panoptic_forecasting_tpu_torch.kernels.experimental.minwin import (
+    minwin_canvas, minwin_overflow, place_minwin, place_minwin_plain,
+)
 from panoptic_forecasting_tpu_torch.kernels.placement import (
     EMPTY, place_min, place_min_plain,
 )
 from panoptic_forecasting_tpu_torch.kernels.stem import (
     assemble_onehot, onehot_stem_conv, onehot_stem_conv_plain,
 )
-from panoptic_forecasting_tpu_torch.kernels.zbuffer import splat_stream
+from panoptic_forecasting_tpu_torch.kernels.zbuffer import splat_stream, zbuffer_splat
 from panoptic_forecasting_tpu_torch.models import BGModel, FGModel, seeded_init_
 from panoptic_forecasting_tpu_torch.models.pc_transform import (
-    pc_transform_predict, reproject,
+    PCTransformModel, pc_transform_predict, reproject,
 )
+from panoptic_forecasting_tpu_torch.scripts import prof_minwin, prof_strided_load
+from panoptic_forecasting_tpu_torch.scripts._timing import time_ms
 
 SEED = 0
 H, W, T_IN = 1024, 2048, 3
@@ -235,19 +260,21 @@ def edge_cases(dev):
         raise SystemExit(f"K2 edge cases differ by {worst}")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device ms per call, CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
+def device_ms(fn, iters: int = 50) -> float:
+    """Mean device time per call of ``fn``: the kernels it launches, summed
+    by torch.profiler over ``iters`` calls. Unlike ``time_ms`` it leaves
+    out the host's time between launches, which bounds a small kernel."""
+    fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if busy <= 0:
+        raise SystemExit("torch.profiler saw no kernel: device time not measured")
+    return busy / iters / 1e3
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -332,6 +359,186 @@ def check_output(out, height: int, width: int):
     return float((pan >= 11000).float().mean())
 
 
+COUNTED = (place_min, onehot_stem_conv, minwin_canvas,
+           *(getattr(strided_load, p) for p in strided_load.PROBES))
+
+
+def reset_counts():
+    for fn in COUNTED:
+        fn.launches = 0
+
+
+def read_counts():
+    return {fn.__name__: fn.launches for fn in COUNTED}
+
+
+def k3_stream(dev):
+    """K3's entry-point stream (scripts/prof_minwin.py) on the card."""
+    group, key = prof_minwin.make_stream(H, W)
+    return (torch.from_numpy(group).to(dev), torch.from_numpy(key).to(dev),
+            prof_minwin.FRAMES * H * W, prof_minwin.pile_kwargs(H, W))
+
+
+def k3_checks(group, key, num_groups, pk):
+    """Phase 7: K3 against its plain version and K1 on the entry point's
+    stream, then on edge cases. Returns the max abs canvas difference."""
+    canvas, ov = place_minwin(group, key, num_groups=num_groups, **pk)
+    ref, ov_ref = place_minwin_plain(group, key, num_groups=num_groups, **pk)
+    k1 = place_min(group, key, num_groups)
+    torch.cuda.synchronize()
+    err = int((canvas.long() - ref.long()).abs().max())
+    if not (torch.equal(canvas, ref) and torch.equal(canvas, k1)
+            and int(ov) == int(ov_ref)):
+        raise SystemExit(f"K3 differs: canvas max abs diff {err}, vs K1 "
+                         f"{int((canvas != k1).sum())} groups, overflow "
+                         f"{int(ov)} vs {int(ov_ref)}")
+    print(f"[K3] place_minwin {group.numel()} entries -> {num_groups} groups: "
+          f"bit-equal to its plain version and to K1, overflow {int(ov)}")
+
+    dev = group.device
+    g = torch.Generator().manual_seed(SEED + 2)
+
+    def keys(n):
+        k = torch.randint(0, 2**31 - 1, (n,), generator=g, dtype=torch.int32)
+        k[::9] = 0
+        return k
+
+    mixed = torch.randint(-3000, 70000, (100_003,), generator=g, dtype=torch.int32)
+    mixed[::13] = 2**30
+    mixed[5::17] = 2**31 - 1
+    runs = torch.randint(0, 5000, (4096,), generator=g, dtype=torch.int32)
+    cases = {
+        # key 0, sentinels past the canvas, negative groups, N % 32 != 0
+        "mixed": (mixed, 65536, {}),
+        "mixed_piles": (mixed, 65536, dict(plane_size=4096, pile_width=128)),
+        # whole warps on one group, and runs of 16 that straddle warps
+        "warp_runs": (runs.repeat_interleave(32), 5000, {}),
+        "half_warp_runs": (runs.repeat_interleave(16)[8:], 5000, {}),
+        "one_group": (torch.full((70_001,), 7, dtype=torch.int32), 16, {}),
+        "tiny": (torch.randint(0, 40, (37,), generator=g, dtype=torch.int32), 40, {}),
+        "empty": (torch.zeros(0, dtype=torch.int32), 300, {}),
+    }
+    for name, (grp, n_groups, kw) in cases.items():
+        grp, k = grp.to(dev), keys(grp.numel()).to(dev)
+        got = place_minwin(grp, k, num_groups=n_groups, block=512, sw=1024, **kw)
+        want = place_minwin_plain(grp, k, num_groups=n_groups, block=512,
+                                  sw=1024, **kw)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise SystemExit(f"K3 edge case {name} differs from its plain version")
+    print(f"[edge] K3 bit-equal on {', '.join(cases)}")
+    return err
+
+
+def k4_checks(dev):
+    """Phase 8: every K4 probe bit-equal to its plain version. Returns the
+    max abs difference."""
+    g = torch.Generator().manual_seed(SEED + 4)
+    xs = (torch.arange(8 * 2048, dtype=torch.float32).reshape(8, 2048),
+          torch.randn(64, 4096, generator=g),
+          torch.randn(3, 3002, generator=g))  # a ragged last shared-memory tile
+    err = 0.0
+    for name in strided_load.PROBES:
+        probe = getattr(strided_load, name)
+        for x in xs:
+            x = x.to(dev)
+            for start in (0, 1):
+                got = probe(x, start)
+                want = strided_load.strided_plain(x, start)
+                err = max(err, float((got - want).abs().max()))
+                if not torch.equal(got, want):
+                    raise SystemExit(f"K4 {name} differs at {tuple(x.shape)}, "
+                                     f"start {start}")
+    torch.cuda.synchronize()
+    print(f"[K4] {', '.join(strided_load.PROBES)} bit-equal on "
+          f"{', '.join(str(tuple(x.shape)) for x in xs)}, start 0 and 1")
+    return err
+
+
+def payload_batches(pc_in, seed):
+    """PCTransformModel batches of the pc inputs with panoptic ids
+    (trainId·1000 + 11000 + instance) and with an RGB payload."""
+    rng = np.random.RandomState(seed)
+    seg = pc_in["seg"]
+    pan = (seg * 1000 + 11000 + rng.randint(0, 50, seg.shape)).astype(np.int32)
+    rgb = rng.randint(0, 256, seg.shape + (3,)).astype(np.uint8)
+    return {"panoptic": ({"inputs": dict(pc_in, seg=pan)}, "sort"),
+            "rgb": ({"inputs": dict(pc_in, seg=rgb)}, "auto")}
+
+
+def exact_zbuffer(pc_in, dev):
+    """Phase 9: the exact z-buffer through PCTransformModel at full width
+    (sort equal to scatter, labels whole), timed; then GPU against CPU at
+    256x512, bit-equal. Returns its timings in ms."""
+    ms = {}
+    for name, (batch, method) in payload_batches(pc_in, SEED + 3).items():
+        model = PCTransformModel({"model": {"zbuffer_method": method}}, device=dev)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = model.predict(batch)
+        torch.cuda.synchronize()
+        ms[f"{name}_first_call_host"] = (time.perf_counter() - ts) * 1e3
+        other = PCTransformModel({"model": {"zbuffer_method": "scatter"}},
+                                 device=dev).predict(batch)
+        seg, dep = out["seg"], out["depth"]
+        want = (1, H, W, 3) if name == "rgb" else (1, H, W)
+        if tuple(seg.shape) != want or not torch.isfinite(dep).all():
+            raise SystemExit(f"exact z-buffer {name}: bad output {tuple(seg.shape)}")
+        if not (torch.equal(seg, other["seg"]) and torch.equal(dep, other["depth"])):
+            raise SystemExit(f"exact z-buffer {name}: sort and scatter differ")
+        if name == "panoptic":
+            ids = torch.unique(seg)
+            if not (ids[ids > 0].min() >= 11000 and int(ids.max()) > 255):
+                raise SystemExit("exact z-buffer lost the panoptic ids")
+        dev_batch = {"inputs": {k: torch.as_tensor(v).to(dev)
+                                if k in ("seg", "depth", "depth_mask") else v
+                                for k, v in batch["inputs"].items()}}
+        ms[f"{name}_predict"] = time_ms(lambda: model.predict(dev_batch), 5, 1)
+        inp = dev_batch["inputs"]
+        uv, z, label, valid = reproject(
+            inp["seg"], inp["depth"], inp["depth_mask"],
+            torch.as_tensor(inp["intrinsics"]), torch.as_tensor(inp["extrinsics"]),
+            torch.as_tensor(inp["target_T"]), height=H, width=W)
+        for m in ("sort", "scatter"):
+            ms[f"{name}_splat_{m}"] = time_ms(lambda: zbuffer_splat(
+                uv, z, label, valid, height=H, width=W, method=m), 5, 1)
+        print(f"[exact] {name} {H}x{W} ({method}): {float((dep > 0).float().mean()):.3f}"
+              f" of pixels painted, sort == scatter")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    pc_s, _ = make_inputs(H_SMALL, W_SMALL)
+    for name, (batch, method) in payload_batches(pc_s, SEED + 5).items():
+        outs = [PCTransformModel({"model": {"zbuffer_method": method}},
+                                 device=d).predict(batch)
+                for d in (dev, torch.device("cpu"))]
+        for key in ("seg", "depth"):
+            if not torch.equal(outs[0][key].cpu(), outs[1][key]):
+                raise SystemExit(f"exact z-buffer {name}: GPU and CPU {key} differ")
+    print(f"[exact] GPU against CPU at {H_SMALL}x{W_SMALL}: panoptic and rgb "
+          f"bit-equal; peak memory so far {peak:.2f} GiB")
+    print("[time] exact z-buffer " + json.dumps({k: round(v, 4) for k, v in ms.items()}))
+    return ms
+
+
+def entry_points():
+    """Phase 10: the K3 and K4 entry points, each with every launch count
+    set to 0 just before and read just after."""
+    reset_counts()
+    rc = prof_minwin.main([])
+    k3 = read_counts()
+    print(f"[entry] prof_minwin rc {rc}, launches {k3}")
+    if rc != 0 or k3["minwin_canvas"] < 1:
+        raise SystemExit("the K3 entry point failed or did not launch K3")
+    reset_counts()
+    rc = prof_strided_load.main([])
+    k4 = read_counts()
+    print(f"[entry] prof_strided_load rc {rc}, launches {k4}")
+    if rc != 0 or min(k4[p] for p in strided_load.PROBES) < 1:
+        raise SystemExit("the K4 entry point failed or a probe did not launch")
+    return k3, k4
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -345,7 +552,8 @@ def main() -> int:
     t0 = time.perf_counter()
 
     # ---- 1. build -----------------------------------------------------------
-    secs = build.build(["placement", "stem"], verbose=True)
+    secs = build.build(["placement", "stem", "minwin", "strided_load"],
+                       verbose=True)
     print("[build] " + ", ".join(f"{k}.cu {v:.1f}s" for k, v in secs.items()))
 
     bg, fg = make_models(dev)
@@ -377,14 +585,12 @@ def main() -> int:
 
     # ---- 4. the main path, counted ------------------------------------------
     step = build_forecast_step(bg, fg, height=H, width=W, out_t=OUT_T)
-    place_min.launches = 0
-    onehot_stem_conv.launches = 0
+    reset_counts()
     out = step(pc_in, fg_in)
     torch.cuda.synchronize()
-    launches = {"place_min": place_min.launches,
-                "onehot_stem_conv": onehot_stem_conv.launches}
+    launches = read_counts()
     print(f"[step] {H}x{W}: launches {launches}")
-    if min(launches.values()) < 1:
+    if min(launches["place_min"], launches["onehot_stem_conv"]) < 1:
         raise SystemExit(f"a kernel of the main path did not launch: {launches}")
     painted = check_output(out, H, W)
     print(f"[step] panoptic {tuple(out['panoptic'].shape)}, ids "
@@ -438,6 +644,68 @@ def main() -> int:
     for k, v in times.items():
         print(f"[time] {k} {v:.4f} ms")
 
+    # ---- 7. K3 against its plain version and K1 -----------------------------
+    k3_group, k3_key, k3_groups, pk = k3_stream(dev)
+    k3_err = k3_checks(k3_group, k3_key, k3_groups, pk)
+
+    # ---- 8. K4 against its plain versions -------------------------------------
+    k4_err = k4_checks(dev)
+
+    # ---- 9. the exact z-buffer -------------------------------------------------
+    exact_zbuffer(pc_in, dev)
+
+    # ---- 10. the K3 and K4 entry points, counted --------------------------------
+    k3_launches, k4_launches = entry_points()
+
+    # ---- 11. K3 and K4 timings ---------------------------------------------------
+    k3_g64 = k3_group.long()
+    k3_filled = torch.full((k3_groups,), EMPTY, dtype=torch.int32, device=dev)
+    times.update({
+        "k3": time_ms(lambda: minwin_canvas(k3_group, k3_key, k3_groups)),
+        "k3_plain": time_ms(lambda: place_min_plain(k3_group, k3_key, k3_groups)),
+        "k3_lib": time_ms(lambda: torch.scatter_reduce(
+            k3_filled, 0, k3_g64, k3_key, "amin")),
+        "k3_overflow": time_ms(lambda: minwin_overflow(
+            k3_group, num_groups=k3_groups, block=4096, sw=65536, **pk)),
+        "k3_wrapper": time_ms(lambda: place_minwin(
+            k3_group, k3_key, num_groups=k3_groups, **pk)),
+        "k3_wrapper_plain": time_ms(lambda: place_minwin_plain(
+            k3_group, k3_key, num_groups=k3_groups, **pk)),
+        "k1_device": device_ms(lambda: place_min(group, key, num_groups)),
+        "k2_device": device_ms(lambda: onehot_stem_conv(seg, dep, kern, bias,
+                                                        num_classes=11)),
+        "k3_device": device_ms(lambda: minwin_canvas(k3_group, k3_key,
+                                                     k3_groups)),
+    })
+    # K3 against K1 on three streams: K3's own (coherent, few duplicates
+    # in a warp), the forecast's z-buffer stream, and whole warps on one
+    # group (where warp aggregation saves 31 of 32 atomics).
+    runs = torch.randint(0, k3_groups, (k3_group.numel() // 32,),
+                         generator=torch.Generator().manual_seed(SEED + 6),
+                         dtype=torch.int32).repeat_interleave(32).to(dev)
+    for name, (g_s, k_s, n_s) in {
+            "k3_stream": (k3_group, k3_key, k3_groups),
+            "forecast_stream": (group, key, num_groups),
+            "warp_runs": (runs, k3_key, k3_groups)}.items():
+        t_k3 = time_ms(lambda: minwin_canvas(g_s, k_s, n_s))
+        t_k1 = time_ms(lambda: place_min(g_s, k_s, n_s))
+        print(f"[time] {name} ({g_s.numel()} entries, {n_s} groups): "
+              f"K3 {t_k3:.4f} ms, K1 {t_k1:.4f} ms")
+    x4 = torch.arange(prof_strided_load.ROWS * prof_strided_load.COLS,
+                      dtype=torch.float32, device=dev).reshape(
+                          prof_strided_load.ROWS, prof_strided_load.COLS)
+    k4_start = {name: start for name, _, start in prof_strided_load.CASES}
+    for name, probe, start in prof_strided_load.CASES:
+        times[f"k4_{name}"] = time_ms(lambda: probe(x4, start), 200, 10)
+        times[f"k4_{name}_device"] = device_ms(lambda: probe(x4, start))
+        times[f"k4_{name}_plain"] = time_ms(
+            lambda: strided_load.strided_plain(x4, start), 200, 10)
+        times[f"k4_{name}_lib"] = time_ms(
+            lambda: x4[:, start::2].contiguous(), 200, 10)
+    for k, v in times.items():
+        if k.startswith(("k3", "k4")) or k.endswith("_device"):
+            print(f"[time] {k} {v:.4f} ms")
+
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
     k2_bytes = (seg.numel() * 4 + dep.numel() * 4 + kern.numel() * 4
@@ -449,14 +717,44 @@ def main() -> int:
          "replaces": "panoptic_forecasting_tpu/kernels/placement.py:197",
          "launches": launches["place_min"], "max_abs_err": k1_err,
          "ms": times["k1"], "plain_ms": times["k1_plain"],
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": times["k1_lib"]},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": times["k1_lib"],
+         "device_ms": times["k1_device"]},
         {"name": "onehot_stem_conv", "route": "cuda",
          "source": "panoptic_forecasting_tpu_torch/csrc/stem.cu",
          "replaces": "panoptic_forecasting_tpu/kernels/stem.py:180",
          "launches": launches["onehot_stem_conv"], "max_abs_err": k2_err,
          "ms": times["k2"], "plain_ms": times["k2_plain"],
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": times["k2_lib"]},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": times["k2_lib"],
+         "device_ms": times["k2_device"]},
     ]
+    n3 = k3_group.numel()
+    k3_bound, k3_by = bound_ms(4 * n3 * 2 + 4 * k3_groups, n3)
+    kernels.append(
+        {"name": "place_minwin", "route": "cuda",
+         "source": "panoptic_forecasting_tpu_torch/csrc/minwin.cu",
+         "replaces": "panoptic_forecasting_tpu/kernels/experimental/minwin.py:201",
+         "launches": k3_launches["minwin_canvas"], "max_abs_err": k3_err,
+         "ms": times["k3"], "plain_ms": times["k3_plain"],
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": times["k3_lib"],
+         "device_ms": times["k3_device"],
+         "overflow_ms": times["k3_overflow"], "wrapper_ms": times["k3_wrapper"],
+         "wrapper_plain_ms": times["k3_wrapper_plain"],
+         "note": "ms: the canvas kernel (minwin_canvas); wrapper_ms adds the "
+                 "plain-PyTorch overflow count (place_minwin)"})
+    k4_bound, k4_by = bound_ms(x4.numel() * 4 + x4.numel() // 2 * 4, 0)
+    for name in strided_load.PROBES:
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "panoptic_forecasting_tpu_torch/csrc/strided_load.cu",
+             "replaces": "scripts/prof_strided_load.py:48",
+             "launches": k4_launches[name], "max_abs_err": k4_err,
+             "ms": times[f"k4_{name}"], "plain_ms": times[f"k4_{name}_plain"],
+             "bound_ms": k4_bound, "bound_by": k4_by,
+             "library_ms": times[f"k4_{name}_lib"],
+             "device_ms": times[f"k4_{name}_device"],
+             "note": f"library call x[:, {k4_start[name]}::2].contiguous(), "
+                     "the plain version's own call; at 98,304 bytes a "
+                     "launch dominates"})
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -104,7 +104,7 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
             flat(seg), flat(pc_in["depth"], f32), flat(pc_in["depth_mask"]),
             cam(pc_in["intrinsics"]), cam(pc_in["extrinsics"]),
             torch.as_tensor(pc_in["target_T"], dtype=f32).reshape(b * t, 1, 4, 4),
-            height=height, width=width,
+            height=height, width=width, device=dev,
         )
         rep_seg = rep["seg"].reshape(b, t, height, width)
         rep_depth = rep["depth"].reshape(b, t, height, width)

@@ -1,0 +1,81 @@
+"""K4: the strided-load probes, f32[R, C] -> f32[R, C/2] (every other lane).
+
+Counterpart of the three Pallas probe bodies of
+``scripts/prof_strided_load.py`` (``k_strided_ref``, ``k_strided_val``,
+``k_dyn_row_strided``). Each is a hand-written CUDA kernel in
+``csrc/strided_load.cu`` that probes one access pattern: a stride-2 read
+from global memory (``strided_ref``), a coalesced row load through shared
+memory (``strided_val``), and one block walking the rows in a runtime
+loop (``dyn_row_strided``, the fused stem kernel's pattern). For a CUDA
+tensor each wrapper launches its kernel once and counts it; for a CPU
+tensor it runs ``strided_plain``, ``x[:, start::2]`` in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+PROBES = ("strided_ref", "strided_val", "dyn_row_strided")
+
+
+def strided_plain(x: torch.Tensor, start: int) -> torch.Tensor:
+    """Plain PyTorch version of every probe: lanes start, start+2, ..."""
+    return x[:, start::2].contiguous()
+
+
+def _check(x: torch.Tensor, start: int):
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[1] % 2:
+        raise ValueError(f"x must be (R, C) with C even, got {tuple(x.shape)}")
+    if start not in (0, 1):
+        raise ValueError(f"start must be 0 or 1, got {start}")
+
+
+def _probe(name: str):
+    def run(x: torch.Tensor, start: int) -> torch.Tensor:
+        _check(x, start)
+        if x.device.type == "cpu":
+            return strided_plain(x, start)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        x = x.contiguous()
+        rows, cols = x.shape
+        out = torch.empty((rows, cols // 2), dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        fn = getattr(_lib(), name)
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), out.data_ptr(), rows, cols, start,
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        run.launches += 1
+        return out
+
+    run.__name__ = run.__qualname__ = name
+    run.__doc__ = (f"(R, C/2) float32: lanes start, start+2, ... of each row; "
+                   f"CUDA tensors launch ``{name}`` in csrc/strided_load.cu.")
+    run.launches = 0
+    return run
+
+
+strided_ref = _probe("strided_ref")
+strided_val = _probe("strided_val")
+dyn_row_strided = _probe("dyn_row_strided")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("strided_load")
+    for name in PROBES:
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib

@@ -2,12 +2,13 @@ from .base import seeded_init_
 from .bg import BGModel
 from .fg import FGModel
 from .hardnet import HarDNet, fold_batchnorm_
-from .pc_transform import pc_transform_predict
+from .pc_transform import PCTransformModel, pc_transform_predict
 
 __all__ = [
     "BGModel",
     "FGModel",
     "HarDNet",
+    "PCTransformModel",
     "fold_batchnorm_",
     "pc_transform_predict",
     "seeded_init_",

@@ -5,14 +5,19 @@ Counterpart of ``panoptic_forecasting_tpu/models/pc_transform.py``
 (reference ``PCTransformModel.predict``, pc_transform_model.py:26-150).
 The 4-matrix chain collapses per (batch, frame) into one affine map
 A = E⁻¹·target_T·E, combined with K⁻¹ so the per-pixel work is a
-multiply-add over the pixel grid; the splat is the packed z-buffer
-(``kernels/zbuffer.py``, K1 on the GPU). Everything is float32.
+multiply-add over the pixel grid; the splat is the z-buffer of
+``kernels/zbuffer.py`` (by default the packed path, K1 on the GPU).
+Everything is float32. ``PCTransformModel`` is the task class around
+``pc_transform_predict``.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict, Optional
+
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..kernels.zbuffer import zbuffer_splat
 
 
@@ -88,8 +93,9 @@ def _reproject_points(depth, K, extrinsics, target_T, height: int,
 def reproject(seg, depth, depth_mask, K, extrinsics, target_T, *,
               height: int, width: int):
     """Every input pixel as a point of the target camera, flattened per
-    batch: (uv (B, N, 2), z (B, N), label (B, N), valid (B, N)), N = T·H·W.
-    A point is valid with valid input depth, z > 0 and on screen."""
+    batch: (uv (B, N, 2), z (B, N), label (B, N[, C]), valid (B, N)),
+    N = T·H·W. A point is valid with valid input depth, z > 0 and on
+    screen."""
     uv, z = _reproject_points(depth.to(torch.float32), K, extrinsics,
                               target_T, height, width)
     valid = (
@@ -102,21 +108,70 @@ def reproject(seg, depth, depth_mask, K, extrinsics, target_T, *,
     )
     b = depth.shape[0]
     n = depth.shape[1] * height * width
-    return (uv.reshape(b, n, 2), z.reshape(b, n), seg.reshape(b, n),
-            valid.reshape(b, n))
+    return (uv.reshape(b, n, 2), z.reshape(b, n),
+            seg.reshape((b, n) + tuple(seg.shape[4:])), valid.reshape(b, n))
 
 
 def pc_transform_predict(seg, depth, depth_mask, K, extrinsics, target_T, *,
-                         height: int, width: int):
-    """Batched reprojection + splat.
+                         height: int, width: int, method: str = "auto",
+                         device: DeviceLike = None):
+    """Batched reprojection + splat on ``device`` (the GPU unless
+    ``device="cpu"``).
 
-    seg (B, T, H, W) int labels in [0, 255]; depth/depth_mask (B, T, H, W)
-    on the compute device; K (B, 3, 3), extrinsics (B, 4, 4) and target_T
-    (B, T, 4, 4) anywhere (the camera chain is computed on the host).
-    Returns {"seg": (B, H, W), "depth": (B, H, W)}: the T input frames'
-    points z-buffered into one canvas per batch.
+    seg (B, T, H, W) int labels, or (B, T, H, W, C) a vector payload (RGB
+    images); depth/depth_mask (B, T, H, W), moved to ``device``; K (B, 3,
+    3), extrinsics (B, 4, 4) and target_T (B, T, 4, 4) anywhere (the
+    camera chain is computed on the host). ``method`` is the z-buffer's
+    (``kernels/zbuffer.py::zbuffer_splat``; ``auto`` takes the packed
+    path for scalar labels, which must then lie in [0, 255], and ``sort``
+    for vector payloads). Returns {"seg": (B, H, W[, C]), "depth": (B, H,
+    W)}: the T input frames' points z-buffered into one canvas per batch.
     """
+    dev = resolve_device(device)
+    seg, depth, depth_mask = (torch.as_tensor(x, device=dev)
+                              for x in (seg, depth, depth_mask))
     uv, z, label, valid = reproject(seg, depth, depth_mask, K, extrinsics,
                                     target_T, height=height, width=width)
-    lab, dep = zbuffer_splat(uv, z, label, valid, height=height, width=width)
+    lab, dep = zbuffer_splat(uv, z, label, valid, height=height, width=width,
+                             method=method)
     return {"seg": lab, "depth": dep}
+
+
+class PCTransformModel:
+    """Stateless geometry engine (no learned parameters; predict-only).
+
+    Counterpart of JAX ``models/pc_transform.py::PCTransformModel``
+    (:111-150). Config keys under ``model``: ``only_this_ind`` (reproject
+    only that input frame), ``zbuffer_method`` (default ``auto``) and
+    ``is_img``, kept as in JAX, where it selects nothing either: the
+    payload's shape (B, T, H, W, 3) alone takes the vector path. With no
+    parameters the JAX ``variables`` argument of ``predict`` has no
+    counterpart.
+    """
+
+    def __init__(self, cfg: Dict[str, Any], device: DeviceLike = None):
+        m = cfg.get("model", {})
+        self.only_this_ind: Optional[int] = m.get("only_this_ind")
+        self.is_img = bool(m.get("is_img"))
+        self.method = m.get("zbuffer_method", "auto")
+        self.device = resolve_device(device)
+
+    def predict(self, batch) -> Dict[str, torch.Tensor]:
+        """batch["inputs"]: seg, depth, depth_mask (B, T, H, W[, C]),
+        intrinsics (B, 3, 3), extrinsics (B, 4, 4), target_T (B, T, 4, 4),
+        numpy arrays or tensors."""
+        inp = batch["inputs"]
+        seg, depth, depth_mask = (inp[k] for k in ("seg", "depth", "depth_mask"))
+        target_T = torch.as_tensor(inp["target_T"], dtype=torch.float32)
+        if self.only_this_ind is not None:
+            i = self.only_this_ind
+            seg, depth, depth_mask, target_T = (
+                x[:, i : i + 1] for x in (seg, depth, depth_mask, target_T))
+        height, width = depth.shape[-2:]
+        return pc_transform_predict(
+            seg, depth, depth_mask,
+            torch.as_tensor(inp["intrinsics"], dtype=torch.float32),
+            torch.as_tensor(inp["extrinsics"], dtype=torch.float32),
+            target_T, height=height, width=width, method=self.method,
+            device=self.device,
+        )

@@ -1,7 +1,8 @@
 """Shared set-up of the port parity tests (tests/test_torch_port_*.py);
 it holds no tests. The synthetic fg scene fixture of
 tests/test_forecast_fused.py, a JAX FGModel initialised on it, and the
-same weights in the port's FGModel."""
+same weights in the port's FGModel; the reprojection scene of the
+point-cloud tests."""
 
 import jax
 import numpy as np
@@ -9,6 +10,7 @@ import numpy as np
 from panoptic_forecasting_tpu.core import build_dataset, build_model
 from panoptic_forecasting_tpu.data.synthetic import write_fg_fixture
 from panoptic_forecasting_tpu_torch.models.convert import fg_state_dict_from_jax
+from panoptic_forecasting_tpu_torch.geometry import rdf_T_flu, unicycle_now_T_prev
 from panoptic_forecasting_tpu_torch.models.fg import FGModel
 
 # The narrow fg widths of tests/test_forecast_fused.py.
@@ -90,3 +92,30 @@ def port_fg(cfg, jax_model, variables, device="cpu"):
     model = FGModel(cfg, stats=stats, device=device)
     model.load_state_dict(fg_state_dict_from_jax(variables["params"], stats))
     return model
+
+
+def pc_scene(rng, b, t, h, w, rotated=False):
+    """(seg, depth, depth_mask, K, E, target_T) numpy inputs of the
+    point-cloud transform, with the tests/test_forecast_fused.py camera
+    and motion (one frame is a pure translation, which puts many points
+    exactly on integer pixels); ``rotated`` tilts the camera and jitters
+    the motion as well."""
+    seg = rng.randint(0, 11, size=(b, t, h, w)).astype(np.int32)
+    depth = (rng.rand(b, t, h, w) * 40 + 2).astype(np.float32)
+    depth[:, :, :4] = 0.05  # near points: some land behind the moved camera
+    depth_mask = rng.rand(b, t, h, w) > 0.1
+    K = np.array([[60.0, 0, w / 2], [0, 60.0, h / 2], [0, 0, 1]], np.float32)
+    E = (np.array([[1, 0, 0, 0.3], [0, 1, 0, 0.0], [0, 0, 1, 1.1],
+                   [0, 0, 0, 1]], np.float32) @ rdf_T_flu()).astype(np.float32)
+    Ts = unicycle_now_T_prev(
+        np.array([3.0, 2.0, 1.0], np.float32),
+        np.array([0.02, 0.0, -0.01], np.float32), 0.35,
+    ).numpy()
+    E = np.tile(E[None], (b, 1, 1))
+    Ts = np.tile(Ts[None], (b, 1, 1, 1))
+    if rotated:
+        a, c = 0.07, np.cos(0.07)
+        tilt = np.array([[1, 0, 0], [0, c, -np.sin(a)], [0, np.sin(a), c]])
+        E[:, :3, :3] = (E[:, :3, :3].astype(np.float64) @ tilt).astype(np.float32)
+        Ts[..., :3, 3] += (rng.randn(b, t, 3) * 0.3).astype(np.float32)
+    return seg, depth, depth_mask, np.tile(K[None], (b, 1, 1)), E, Ts

@@ -33,6 +33,7 @@ from panoptic_forecasting_tpu_torch.kernels.zbuffer import zbuffer_splat
 from panoptic_forecasting_tpu_torch.models.pc_transform import (
     pc_transform_predict,
 )
+from test_torch_port_common import pc_scene
 
 torch.set_num_threads(2)
 
@@ -195,39 +196,28 @@ def test_zbuffer_splat_matches_pallas_interpret():
 
 
 def test_zbuffer_splat_raises_on_unported_paths():
-    uv = torch.zeros(4, 2)
-    depth = torch.ones(4)
-    valid = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        zbuffer_splat(uv, depth, torch.zeros(4, dtype=torch.int32), valid,
-                      height=4, width=4, max_label=512)
-    with pytest.raises(NotImplementedError):
-        zbuffer_splat(uv, depth, torch.zeros(4, 3), valid, height=4, width=4)
-
-
-def _scene(rng, b, t, h, w, rotated=False):
-    """The tests/test_forecast_fused.py camera and motion (one frame is a
-    pure translation, which puts many points exactly on integer pixels);
-    ``rotated`` tilts the camera and jitters the motion as well."""
-    seg = rng.randint(0, 11, size=(b, t, h, w)).astype(np.int32)
-    depth = (rng.rand(b, t, h, w) * 40 + 2).astype(np.float32)
-    depth[:, :, :4] = 0.05  # near points: some land behind the moved camera
-    depth_mask = rng.rand(b, t, h, w) > 0.1
-    K = np.array([[60.0, 0, w / 2], [0, 60.0, h / 2], [0, 0, 1]], np.float32)
-    E = (np.array([[1, 0, 0, 0.3], [0, 1, 0, 0.0], [0, 0, 1, 1.1],
-                   [0, 0, 0, 1]], np.float32) @ rdf_T_flu()).astype(np.float32)
-    Ts = unicycle_now_T_prev(
-        np.array([3.0, 2.0, 1.0], np.float32),
-        np.array([0.02, 0.0, -0.01], np.float32), 0.35,
-    ).numpy()
-    E = np.tile(E[None], (b, 1, 1))
-    Ts = np.tile(Ts[None], (b, 1, 1, 1))
-    if rotated:
-        a, c = 0.07, np.cos(0.07)
-        tilt = np.array([[1, 0, 0], [0, c, -np.sin(a)], [0, np.sin(a), c]])
-        E[:, :3, :3] = (E[:, :3, :3].astype(np.float64) @ tilt).astype(np.float32)
-        Ts[..., :3, 3] += (rng.randn(b, t, 3) * 0.3).astype(np.float32)
-    return seg, depth, depth_mask, np.tile(K[None], (b, 1, 1)), E, Ts
+    """The packed requests JAX rejects (a label that would alias in 8
+    bits, a vector payload) raise ValueError in both; so does a method
+    name the port does not know."""
+    uv = np.zeros((4, 2), np.float32)
+    depth = np.ones(4, np.float32)
+    valid = np.ones(4, bool)
+    for label, kw in ((np.zeros(4, np.int32), dict(max_label=512)),
+                      (np.zeros((4, 3), np.float32), {})):
+        for method in ("packed", "pallas"):
+            with pytest.raises(ValueError):
+                jax_splat(jnp.asarray(uv), jnp.asarray(depth),
+                          jnp.asarray(label), jnp.asarray(valid), height=4,
+                          width=4, method=method, **kw)
+            with pytest.raises(ValueError):
+                zbuffer_splat(torch.from_numpy(uv), torch.from_numpy(depth),
+                              torch.from_numpy(label), torch.from_numpy(valid),
+                              height=4, width=4, method=method, **kw)
+    with pytest.raises(ValueError):
+        zbuffer_splat(torch.from_numpy(uv), torch.from_numpy(depth),
+                      torch.zeros(4, dtype=torch.int32),
+                      torch.from_numpy(valid), height=4, width=4,
+                      method="bitonic")
 
 
 @pytest.mark.parametrize("rotated", [False, True], ids=["fixture", "rotated"])
@@ -240,10 +230,10 @@ def test_pc_transform_predict_matches_jax(rotated):
     (2^-15 relative), on <= 1e-3 of pixels."""
     rng = np.random.RandomState(0)
     b, t, h, w = 2, 3, 48, 96
-    args = _scene(rng, b, t, h, w, rotated)
+    args = pc_scene(rng, b, t, h, w, rotated)
     jout = jax_pc_predict(*[jnp.asarray(a) for a in args], height=h, width=w)
     tout = pc_transform_predict(*[torch.from_numpy(np.asarray(a)) for a in args],
-                                height=h, width=w)
+                                height=h, width=w, device="cpu")
     jl, jd = np.asarray(jout["seg"]), np.asarray(jout["depth"])
     tl, td = tout["seg"].numpy(), tout["depth"].numpy()
     assert tl.shape == jl.shape == (b, h, w)
