@@ -17,17 +17,25 @@ forecast path, K3 (``scripts/prof_minwin.py``, 3 frames of 1024x2048 =
 their scripts' sizes, and the exact z-buffer (``PCTransformModel``).
 
 Phases (any failure exits non-zero):
-  1. build both CUDA kernels from csrc/ with nvcc (in parallel);
-  2. K1 (place_min) against its plain version on a full-size stream from
-     a real reprojection: bit-equal;
-  3. K2 (onehot_stem_conv) against its plain version at (1,3,1024,2048):
+  1. build the four CUDA sources from csrc/ with nvcc (in parallel);
+  2. K1 on a full-size stream from a real reprojection: the forecast
+     path's fused placement + corner fold (place_min_fold) and the
+     generic place_min, each bit-equal to its plain version; edge
+     cases (B = 2, ceil corners in the last column and row, ignored
+     groups, key 0, N = 0, every entry on one pixel);
+  3. K2 (onehot_stem_conv) against its plain version at (1,3,1024,2048)
+     and at edge shapes (ragged tiles, H = 2, W not a multiple of 4, a
+     misaligned input, batched, no depth, other C, ids outside [0, C)):
      max abs diff <= 1e-5 (f32 sums taken in another order);
   4. the full-width step with every launch counter set to 0 just before
-     and read just after: both kernels must have launched;
+     and read just after: place_min_fold and onehot_stem_conv must have
+     launched, the generic place_min not;
   5. the same step on the GPU and on the CPU at 256x512: ids equal,
      panoptic maps differing on < 1e-3 of pixels;
-  6. timings with CUDA events after warm-up (kernels, their plain
-     versions, one PyTorch library call each, one whole step);
+  6. timings with CUDA events and profiler device time after warm-up
+     (kernels, their plain versions, one PyTorch library call each, the
+     z-buffer placement layer before and after the fused fold, one whole
+     step);
   7. K3 (place_minwin) on the 6.29 M-entry stream of its entry point:
      canvas bit-equal to its plain version and to K1, overflow equal to
      the plain version's; edge cases (key 0, sentinels, negative groups,
@@ -40,15 +48,17 @@ Phases (any failure exits non-zero):
      to scatter; GPU against CPU at 256x512, bit-equal;
  10. the entry points of K3 and K4 (scripts/prof_minwin.py,
      scripts/prof_strided_load.py) with their launch counters set to 0
-     just before each and read just after: each kernel must have
-     launched;
+     just before each and read just after: each kernel (and the generic
+     place_min, which prof_minwin compares against) must have launched;
  11. timings of K3 and K4 (kernels, plain versions, library calls), and
-     each kernel's device time from torch.profiler (``device_ms``: CUDA
-     events around back-to-back calls of a small kernel time the host).
+     the device time from torch.profiler (``device_ms``: CUDA events
+     around back-to-back calls of a small kernel time the host) of each
+     kernel and of each K4 library call.
 
 Prints the card's name and power limit, one JSON line describing every
-kernel (K1-K3 and each K4 probe), and last a JSON line {"ok": true, "device": {...}}. Exits non-zero
-without a result when CUDA is unavailable.
+kernel (both K1 entry points, K2, K3 and each K4 probe), and last a JSON
+line {"ok": true, "device": {...}}. Exits non-zero without a result when
+CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -62,7 +72,6 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import ProfilerActivity, profile
 
 from panoptic_forecasting_tpu_torch.eval import build_forecast_step
 from panoptic_forecasting_tpu_torch.geometry import rdf_T_flu, unicycle_now_T_prev
@@ -71,18 +80,23 @@ from panoptic_forecasting_tpu_torch.kernels.experimental.minwin import (
     minwin_canvas, minwin_overflow, place_minwin, place_minwin_plain,
 )
 from panoptic_forecasting_tpu_torch.kernels.placement import (
-    EMPTY, place_min, place_min_plain,
+    EMPTY, fold_corners, fold_targets, place_min, place_min_fold,
+    place_min_fold_plain, place_min_plain,
 )
 from panoptic_forecasting_tpu_torch.kernels.stem import (
     assemble_onehot, onehot_stem_conv, onehot_stem_conv_plain,
 )
-from panoptic_forecasting_tpu_torch.kernels.zbuffer import splat_stream, zbuffer_splat
+from panoptic_forecasting_tpu_torch.kernels.zbuffer import (
+    decode_canvas, splat_stream, zbuffer_splat,
+)
 from panoptic_forecasting_tpu_torch.models import BGModel, FGModel, seeded_init_
 from panoptic_forecasting_tpu_torch.models.pc_transform import (
     PCTransformModel, pc_transform_predict, reproject,
 )
 from panoptic_forecasting_tpu_torch.scripts import prof_minwin, prof_strided_load
-from panoptic_forecasting_tpu_torch.scripts._timing import time_ms
+from panoptic_forecasting_tpu_torch.scripts._timing import (
+    device_ms, kernel_profile, time_ms,
+)
 
 SEED = 0
 H, W, T_IN = 1024, 2048, 3
@@ -228,11 +242,61 @@ def k2_inputs(bg, pc_in, device):
     return seg, dep, kern, conv.bias.detach()
 
 
+def fold_edge_cases(dev):
+    """place_min_fold against its plain version off the
+    main path's stream: B = 2 with every plane and ignored groups, ceil
+    corners in the last column and row, one pixel for every entry, N = 0,
+    a width that is no power of two."""
+    g = torch.Generator().manual_seed(SEED + 7)
+
+    def keys(n):
+        k = torch.randint(0, 2**31 - 2, (n,), generator=g, dtype=torch.int32)
+        k[::9] = 0
+        return k
+
+    cases = {}
+    b, h, w = 2, 6, 10
+    cases["b2_all_planes_ignored"] = (
+        torch.randint(-50, b * 4 * h * w + 50, (5000,), generator=g,
+                      dtype=torch.int32), b, h, w)
+    b, h, w = 2, 33, 70
+    p = h * w
+    last_col = torch.arange(h) * w + w - 1
+    last_row = (h - 1) * w + torch.arange(w)
+    edge = [bb * 4 * p + plane * p + pix for bb in range(b)
+            for plane, pix in ((1, last_col), (3, last_col), (2, last_row),
+                               (3, last_row), (0, last_row), (1, last_row))]
+    cases["last_col_row"] = (torch.cat(edge).int().repeat(3), b, h, w)
+    b, h, w = 1, 16, 24
+    cases["one_pixel"] = (torch.full((70_001,), 3 * h * w + 5 * w + 7,
+                                     dtype=torch.int32), b, h, w)
+    cases["empty"] = (torch.zeros(0, dtype=torch.int32), 1, 4, 6)
+    b, h, w = 3, 37, 54
+    cases["odd_width"] = (torch.randint(-9, b * 4 * h * w, (200_000,),
+                                        generator=g, dtype=torch.int32), b, h, w)
+    for name, (grp, b, h, w) in cases.items():
+        grp, k = grp.to(dev), keys(grp.numel()).to(dev)
+        want = place_min_fold_plain(grp, k, batch=b, height=h, width=w)
+        folded = fold_corners(place_min_plain(grp, k, b * 4 * h * w), b, h, w)
+        if not torch.equal(folded, want):
+            raise SystemExit(f"K1 fold edge case {name}: the plain version "
+                             "differs from the 4-plane canvas folded")
+        if not torch.equal(place_min_fold(grp, k, batch=b, height=h, width=w),
+                           want):
+            raise SystemExit(f"K1 fold edge case {name} differs from its "
+                             "plain version")
+    print(f"[edge] K1 place_min_fold bit-equal on "
+          f"{', '.join(cases)}")
+
+
 def edge_cases(dev):
     """Both kernels against their plain versions off the main path's
     shapes: K1 with ignored groups (negative, >= num_groups) and key 0;
-    K2 batched, without depth, with other class/frame counts and ids
-    outside [0, C)."""
+    K2 with ragged tiles (H/2 not a multiple of 8 rows, W/2 not of 32
+    columns), H = 2, W not a multiple of 4 and a misaligned input (the
+    scalar staging path), batched, without depth, with other class/frame
+    counts (C·T large enough for > 48 KB of weights) and ids outside
+    [0, C)."""
     g = torch.Generator().manual_seed(SEED)
     group = torch.randint(-50, 5000, (20000,), generator=g, dtype=torch.int32)
     key = torch.randint(0, 2**31 - 2, (20000,), generator=g, dtype=torch.int32)
@@ -242,39 +306,34 @@ def edge_cases(dev):
         if not torch.equal(place_min(group, key, n_groups),
                            place_min_plain(group, key, n_groups)):
             raise SystemExit(f"K1 edge case num_groups={n_groups} differs")
+    fold_edge_cases(dev)
     worst = 0.0
-    for b, t, h, w, c, depth in ((2, 3, 34, 66, 11, True), (1, 2, 16, 48, 5, True),
-                                 (1, 3, 20, 30, 11, False)):
+    shapes = ((2, 3, 34, 66, 11, True, False), (1, 2, 16, 48, 5, True, False),
+              (1, 3, 20, 30, 11, False, False), (1, 3, 50, 138, 11, True, False),
+              (1, 3, 46, 72, 11, True, False), (1, 3, 2, 64, 11, True, False),
+              (2, 2, 16, 48, 5, False, False), (1, 3, 20, 64, 40, True, False),
+              (1, 3, 18, 136, 11, True, True))
+    for b, t, h, w, c, depth, misalign in shapes:
         seg = torch.randint(-2, c + 3, (b, t, h, w), generator=g, dtype=torch.int32)
         dep = torch.randn(b, t, h, w, generator=g) if depth else None
         c_in = t * c + (t if depth else 0)
         kern = torch.randn(3, 3, c_in, 16, generator=g) * 0.2
         bias = torch.randn(16, generator=g)
         args = [x.to(dev) if x is not None else None for x in (seg, dep, kern, bias)]
+        if misalign:  # the same values 4 bytes past a 16-byte boundary
+            for i in (0, 1):
+                flat = torch.empty(args[i].numel() + 1, dtype=args[i].dtype,
+                                   device=dev)
+                flat[1:] = args[i].reshape(-1)
+                args[i] = flat[1:].view(args[i].shape)
         err = float((onehot_stem_conv(*args, num_classes=c)
                      - onehot_stem_conv_plain(*args, num_classes=c)).abs().max())
         worst = max(worst, err)
-    print(f"[edge] K1 ignored groups + key 0 bit-equal; K2 batched/no-depth/"
-          f"other C: max abs diff {worst:.3e}")
+    print(f"[edge] K1 ignored groups + key 0 bit-equal; K2 on {len(shapes)} edge "
+          f"shapes: max abs diff {worst:.3e}")
     if not worst <= 1e-5:
         raise SystemExit(f"K2 edge cases differ by {worst}")
-
-
-def device_ms(fn, iters: int = 50) -> float:
-    """Mean device time per call of ``fn``: the kernels it launches, summed
-    by torch.profiler over ``iters`` calls. Unlike ``time_ms`` it leaves
-    out the host's time between launches, which bounds a small kernel."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    if busy <= 0:
-        raise SystemExit("torch.profiler saw no kernel: device time not measured")
-    return busy / iters / 1e3
+    return worst
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -323,23 +382,15 @@ def stage_breakdown(step, bg, fg, pc_in, fg_in, dev):
     print("[stages] " + json.dumps({k: round(v, 4) for k, v in ms.items()}))
 
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(pc_dev, fg_dev)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    if busy > 0:
-        # busy time from the profiler, step time from CUDA events (unprofiled)
-        per_step = ms["step_device_inputs"]
-        print(f"[profile] one step: device busy {busy:.2f} ms (profiler) of "
-              f"{per_step:.2f} ms per step (CUDA events): idle share "
-              f"{1 - busy / per_step:.3f}")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
-                  f"x{e.count:<4d} {e.key[:90]}")
-    else:
-        print("[profile] device time: not measured (profiler saw no kernels)")
+    # busy time from the profiler, step time from CUDA events (unprofiled)
+    busy = device_ms(lambda: step(pc_dev, fg_dev), 5)
+    per_step = ms["step_device_inputs"]
+    print(f"[profile] one step: device busy {busy:.2f} ms (profiler) of "
+          f"{per_step:.2f} ms per step (CUDA events): idle share "
+          f"{1 - busy / per_step:.3f}")
+    kernels = kernel_profile(lambda: step(pc_dev, fg_dev), 1)
+    for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"[profile]   {us / 1e3:8.3f} ms x{n:<4d} {name[:90]}")
     print(f"[memory] peak allocated during a step: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -359,7 +410,7 @@ def check_output(out, height: int, width: int):
     return float((pan >= 11000).float().mean())
 
 
-COUNTED = (place_min, onehot_stem_conv, minwin_canvas,
+COUNTED = (place_min_fold, place_min, onehot_stem_conv, minwin_canvas,
            *(getattr(strided_load, p) for p in strided_load.PROBES))
 
 
@@ -527,8 +578,9 @@ def entry_points():
     rc = prof_minwin.main([])
     k3 = read_counts()
     print(f"[entry] prof_minwin rc {rc}, launches {k3}")
-    if rc != 0 or k3["minwin_canvas"] < 1:
-        raise SystemExit("the K3 entry point failed or did not launch K3")
+    if rc != 0 or min(k3["minwin_canvas"], k3["place_min"]) < 1:
+        raise SystemExit("the K3 entry point failed or did not launch K3 "
+                         "and the generic K1")
     reset_counts()
     rc = prof_strided_load.main([])
     k4 = read_counts()
@@ -561,6 +613,17 @@ def main() -> int:
 
     # ---- 2. K1 against its plain version ------------------------------------
     group, key, num_groups = k1_inputs(pc_in, dev)
+    k1_fold_ref = place_min_fold_plain(group, key, batch=T_IN, height=H, width=W)
+    k1_fold = place_min_fold(group, key, batch=T_IN, height=H, width=W)
+    torch.cuda.synchronize()
+    k1_fold_err = int((k1_fold.long() - k1_fold_ref.long()).abs().max())
+    if not torch.equal(k1_fold, k1_fold_ref):
+        raise SystemExit(f"K1 place_min_fold differs from its plain version: "
+                         f"{k1_fold_err}")
+    fold_tgt, fold_keys = fold_targets(group, key, batch=T_IN, height=H, width=W)
+    print(f"[K1] place_min_fold {group.numel()} entries ({fold_tgt.numel()} "
+          f"targets) -> {T_IN}x{H}x{W}: bit-equal, "
+          f"{int((k1_fold != EMPTY).sum())} pixels touched")
     k1 = place_min(group, key, num_groups)
     k1_ref = place_min_plain(group, key, num_groups)
     torch.cuda.synchronize()
@@ -570,7 +633,7 @@ def main() -> int:
     print(f"[K1] place_min {group.numel()} entries -> {num_groups} groups: "
           f"bit-equal, {int((k1 != EMPTY).sum())} groups touched")
 
-    edge_cases(dev)
+    k2_edge_err = edge_cases(dev)
 
     # ---- 3. K2 against its plain version ------------------------------------
     seg, dep, kern, bias = k2_inputs(bg, pc_in, dev)
@@ -590,8 +653,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = read_counts()
     print(f"[step] {H}x{W}: launches {launches}")
-    if min(launches["place_min"], launches["onehot_stem_conv"]) < 1:
+    if min(launches["place_min_fold"], launches["onehot_stem_conv"]) < 1:
         raise SystemExit(f"a kernel of the main path did not launch: {launches}")
+    if launches["place_min"] != 0:
+        raise SystemExit(f"the step launched the generic place_min: {launches}")
     painted = check_output(out, H, W)
     print(f"[step] panoptic {tuple(out['panoptic'].shape)}, ids "
           f"{out['ids'][0].tolist()}, {painted:.3f} of pixels in instances")
@@ -619,9 +684,30 @@ def main() -> int:
     # ---- 6. timings ----------------------------------------------------------
     g64 = group.long()
     filled = torch.full((num_groups,), EMPTY, dtype=torch.int32, device=dev)
+    filled1 = torch.full((T_IN * H * W,), EMPTY, dtype=torch.int32, device=dev)
     x_onehot = torch.cat([assemble_onehot(seg, 11), dep], 1)
     w_oihw = kern.permute(3, 2, 0, 1).contiguous()
+
+    def fold():
+        return place_min_fold(group, key, batch=T_IN, height=H, width=W)
+
+    def fold_earlier():  # the forecast path's placement before the fusion
+        return fold_corners(place_min(group, key, num_groups), T_IN, H, W)
+
     times = {
+        "k1fold": time_ms(fold),
+        "k1fold_plain": time_ms(lambda: place_min_fold_plain(
+            group, key, batch=T_IN, height=H, width=W)),
+        "k1fold_lib": time_ms(lambda: torch.scatter_reduce(
+            filled1, 0, fold_tgt, fold_keys, "amin")),
+        "k1fold_earlier": time_ms(fold_earlier),
+        "layer": time_ms(lambda: decode_canvas(fold(), torch.int32)),
+        "layer_earlier": time_ms(lambda: decode_canvas(fold_earlier(), torch.int32)),
+        "k1fold_device": device_ms(fold),
+        "k1fold_earlier_device": device_ms(fold_earlier),
+        "layer_device": device_ms(lambda: decode_canvas(fold(), torch.int32)),
+        "layer_earlier_device": device_ms(
+            lambda: decode_canvas(fold_earlier(), torch.int32)),
         "k1": time_ms(lambda: place_min(group, key, num_groups)),
         "k1_plain": time_ms(lambda: place_min_plain(group, key, num_groups)),
         "k1_lib": time_ms(lambda: torch.scatter_reduce(filled, 0, g64, key, "amin")),
@@ -630,6 +716,8 @@ def main() -> int:
                                                            num_classes=11)),
         "k2_lib": time_ms(lambda: F.conv2d(x_onehot, w_oihw, bias, stride=2, padding=1)),
     }
+    n_targets = fold_tgt.numel()
+    del fold_tgt, fold_keys, filled1  # keep the step's peak memory its own
     step_ms = []
     for i in range(7):
         torch.cuda.synchronize()
@@ -702,30 +790,54 @@ def main() -> int:
             lambda: strided_load.strided_plain(x4, start), 200, 10)
         times[f"k4_{name}_lib"] = time_ms(
             lambda: x4[:, start::2].contiguous(), 200, 10)
+        times[f"k4_{name}_lib_device"] = device_ms(
+            lambda: x4[:, start::2].contiguous())
     for k, v in times.items():
-        if k.startswith(("k3", "k4")) or k.endswith("_device"):
+        if k.startswith(("k3", "k4")) or k in ("k1_device", "k2_device"):
             print(f"[time] {k} {v:.4f} ms")
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
+    fold_bound, fold_by = bound_ms(4 * n * 2 + 4 * T_IN * H * W, n_targets)
     k2_bytes = (seg.numel() * 4 + dep.numel() * 4 + kern.numel() * 4
                 + bias.numel() * 4 + k2.numel() * 4)
     k2_bound, k2_by = bound_ms(k2_bytes, k2_flops(seg, 11))
     kernels = [
+        {"name": "place_min_fold", "route": "cuda",
+         "source": "panoptic_forecasting_tpu_torch/csrc/placement.cu",
+         "replaces": "panoptic_forecasting_tpu/kernels/placement.py:197",
+         "launches": launches["place_min_fold"], "max_abs_err": k1_fold_err,
+         "ms": times["k1fold"], "plain_ms": times["k1fold_plain"],
+         "bound_ms": fold_bound, "bound_by": fold_by,
+         "library_ms": times["k1fold_lib"], "device_ms": times["k1fold_device"],
+         "earlier_ms": times["k1fold_earlier"],
+         "earlier_device_ms": times["k1fold_earlier_device"],
+         "layer_ms": times["layer"], "layer_device_ms": times["layer_device"],
+         "layer_earlier_ms": times["layer_earlier"],
+         "layer_earlier_device_ms": times["layer_earlier_device"],
+         "note": "ms: the kernel (an entry's two targets of a row on two "
+                 "lanes of one atomic instruction); earlier_ms: place_min + "
+                 "fold_corners, the forecast path before; layer adds the "
+                 "label/depth decode"},
         {"name": "place_min", "route": "cuda",
          "source": "panoptic_forecasting_tpu_torch/csrc/placement.cu",
          "replaces": "panoptic_forecasting_tpu/kernels/placement.py:197",
-         "launches": launches["place_min"], "max_abs_err": k1_err,
+         "launches": k3_launches["place_min"], "max_abs_err": k1_err,
          "ms": times["k1"], "plain_ms": times["k1_plain"],
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": times["k1_lib"],
-         "device_ms": times["k1_device"]},
+         "device_ms": times["k1_device"],
+         "note": "generic canvas, timed on the forecast stream; launches "
+                 "counted on scripts/prof_minwin.py (off the forecast path)"},
         {"name": "onehot_stem_conv", "route": "cuda",
          "source": "panoptic_forecasting_tpu_torch/csrc/stem.cu",
          "replaces": "panoptic_forecasting_tpu/kernels/stem.py:180",
-         "launches": launches["onehot_stem_conv"], "max_abs_err": k2_err,
+         "launches": launches["onehot_stem_conv"],
+         "max_abs_err": max(k2_err, k2_edge_err),
          "ms": times["k2"], "plain_ms": times["k2_plain"],
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": times["k2_lib"],
-         "device_ms": times["k2_device"]},
+         "device_ms": times["k2_device"], "earlier_ms": None,
+         "note": "earlier_ms: the previous kernel is no longer in the tree; "
+                 "its time is in PERF.md"},
     ]
     n3 = k3_group.numel()
     k3_bound, k3_by = bound_ms(4 * n3 * 2 + 4 * k3_groups, n3)
@@ -752,6 +864,7 @@ def main() -> int:
              "bound_ms": k4_bound, "bound_by": k4_by,
              "library_ms": times[f"k4_{name}_lib"],
              "device_ms": times[f"k4_{name}_device"],
+             "library_device_ms": times[f"k4_{name}_lib_device"],
              "note": f"library call x[:, {k4_start[name]}::2].contiguous(), "
                      "the plain version's own call; at 98,304 bytes a "
                      "launch dominates"})

@@ -42,6 +42,11 @@ LANE = 128
 SUB = 128
 WIN = 384
 
+_SIGNATURES = {
+    "place_minwin": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p),
+}
+
 
 def _check(group, key, num_groups, block, sw, win, sub, debug_mode):
     if debug_mode != "":
@@ -146,15 +151,9 @@ def minwin_canvas(group: torch.Tensor, key: torch.Tensor,
     group = group.contiguous()
     key = key.contiguous()
     canvas = torch.empty((num_groups,), dtype=torch.int32, device=group.device)
-    lib = _lib()
-    with torch.cuda.device(group.device):
-        err = lib.place_minwin(
-            group.data_ptr(), key.data_ptr(), group.numel(),
-            canvas.data_ptr(), num_groups,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"place_minwin kernel launch failed: CUDA error {err}")
+    build.launch(build.load("minwin", _SIGNATURES).place_minwin,
+                 group.device, group.data_ptr(), key.data_ptr(),
+                 group.numel(), canvas.data_ptr(), num_groups)
     minwin_canvas.launches += 1
     return canvas
 
@@ -179,17 +178,6 @@ def place_minwin(group: torch.Tensor, key: torch.Tensor, *, num_groups: int,
     return (minwin_canvas(group, key, num_groups),
             minwin_overflow(group, num_groups=num_groups, block=block, sw=sw,
                             plane_size=plane_size, pile_width=pile_width))
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("minwin")
-    fn = lib.place_minwin
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 __all__ = ["EMPTY", "LANE", "SUB", "WIN", "minwin_canvas", "minwin_overflow",

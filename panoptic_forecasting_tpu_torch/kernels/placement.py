@@ -2,11 +2,20 @@
 
 Counterpart of ``panoptic_forecasting_tpu/kernels/placement.py::
 place_sorted``. The TPU kernel needs its stream sorted by (group, key);
-min does not depend on order, so this one takes the stream as it comes.
-For a CUDA tensor ``place_min`` launches the hand-written kernel
-``csrc/placement.cu`` (one ``atomicMin`` per entry into an EMPTY-filled
-canvas); for a CPU tensor it runs ``place_min_plain``, the same function
-in plain PyTorch. The canvas is bit-identical either way.
+min does not depend on order, so these take the stream as it comes. Two
+entry points, both in ``csrc/placement.cu``:
+
+* ``place_min``: the generic canvas, one ``atomicMin`` per entry into an
+  EMPTY-filled (num_groups,) canvas (K3's entry point compares against it);
+* ``place_min_fold``: the forecast path's placement, fused with the
+  packed z-buffer's corner fold: each entry of the (batch, corner plane,
+  pixel) stream takes the min at its <= 4 pixels of a one-plane
+  (batch, H, W) canvas, which is what ``fold_corners`` makes of
+  ``place_min``'s 4-plane canvas.
+
+For a CUDA tensor each launches its kernel (and counts the launch); for a
+CPU tensor it runs its plain PyTorch version. The canvas is bit-identical
+either way.
 """
 
 from __future__ import annotations
@@ -18,6 +27,12 @@ import torch
 from . import build
 
 EMPTY = 0x7FFFFFFF  # untouched group; a key of 0 is a valid key
+
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {
+    "place_min": (_P, _P, _I64, _P, _I64, _P),
+    "place_min_fold": (_P, _P, _I64, _P, _INT, _INT, _INT, _P),
+}
 
 
 def place_min_plain(group: torch.Tensor, key: torch.Tensor,
@@ -61,15 +76,9 @@ def place_min(group: torch.Tensor, key: torch.Tensor,
     group = group.contiguous()
     key = key.contiguous()
     canvas = torch.empty((num_groups,), dtype=torch.int32, device=group.device)
-    lib = _lib()
-    with torch.cuda.device(group.device):
-        err = lib.place_min(
-            group.data_ptr(), key.data_ptr(), group.numel(),
-            canvas.data_ptr(), num_groups,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"place_min kernel launch failed: CUDA error {err}")
+    lib = build.load("placement", _SIGNATURES)
+    build.launch(lib.place_min, group.device, group.data_ptr(),
+                 key.data_ptr(), group.numel(), canvas.data_ptr(), num_groups)
     place_min.launches += 1
     return canvas
 
@@ -77,12 +86,97 @@ def place_min(group: torch.Tensor, key: torch.Tensor,
 place_min.launches = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("placement")
-    fn = lib.place_min
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return lib
+def _shift2(c: torch.Tensor, dv: int, du: int) -> torch.Tensor:
+    """Shift (b, H, W) down by dv rows and right by du columns, EMPTY in."""
+    out = torch.full_like(c, EMPTY)
+    h, w = c.shape[-2:]
+    out[:, dv:, du:] = c[:, : h - dv, : w - du]
+    return out
+
+
+def fold_corners(canvas4: torch.Tensor, batch: int, height: int,
+                 width: int) -> torch.Tensor:
+    """(batch·4·P,) corner canvases -> (batch, H, W) min canvas (JAX
+    ``kernels/zbuffer.py`` :238-254): plane fv·2 + fu holds the points
+    whose ceil corner lies fu columns right and fv rows down; what would
+    leave the last column or row is dropped."""
+    g = canvas4.view(batch, 4, height, width)
+    g0, g1, g2, g3 = g.unbind(1)
+    m00 = torch.minimum(torch.minimum(g0, g1), torch.minimum(g2, g3))
+    m10 = torch.minimum(g1, g3)  # points whose ceil-u corner is base+1
+    m01 = torch.minimum(g2, g3)
+    return torch.minimum(
+        torch.minimum(m00, _shift2(m10, 0, 1)),
+        torch.minimum(_shift2(m01, 1, 0), _shift2(g3, 1, 1)),
+    )
+
+
+def fold_targets(group: torch.Tensor, key: torch.Tensor, *, batch: int,
+                 height: int, width: int):
+    """The (canvas index, key) pairs ``place_min_fold`` takes the min over:
+    each entry with group b·4P + plane·P + row·W + col in [0, batch·4P) at
+    b·P + row·W + col, and by its plane's ceil offsets (fu = plane & 1,
+    fv = plane >> 1) one column right (fu, col < W - 1), one row down (fv,
+    row < H - 1) and both. Returns (index int64 (M,), key int32 (M,))."""
+    p = height * width
+    keep = (group >= 0) & (group < batch * 4 * p)
+    g, k = group[keep].long(), key[keep]
+    b, rem = g // (4 * p), g % (4 * p)
+    plane, base = rem // p, rem % p
+    row, col = base // width, base % width
+    t0 = b * p + base
+    right = (plane % 2 == 1) & (col < width - 1)
+    down = (plane // 2 == 1) & (row < height - 1)
+    both = right & down
+    return (torch.cat([t0, t0[right] + 1, t0[down] + width,
+                       t0[both] + width + 1]),
+            torch.cat([k, k[right], k[down], k[both]]))
+
+
+def place_min_fold_plain(group: torch.Tensor, key: torch.Tensor, *,
+                         batch: int, height: int,
+                         width: int) -> torch.Tensor:
+    """Plain PyTorch version of ``place_min_fold``: ``scatter_reduce_``
+    with ``amin`` over ``fold_targets``. Equal to the JAX composition,
+    ``fold_corners`` of the 4-plane canvas (tested)."""
+    tgt, keys = fold_targets(group, key, batch=batch, height=height,
+                             width=width)
+    canvas = torch.full((batch * height * width,), EMPTY, dtype=torch.int32,
+                        device=group.device)
+    canvas.scatter_reduce_(0, tgt, keys, "amin", include_self=True)
+    return canvas.view(batch, height, width)
+
+
+def place_min_fold(group: torch.Tensor, key: torch.Tensor, *, batch: int,
+                   height: int, width: int) -> torch.Tensor:
+    """(batch, H, W) int32 one-plane min canvas of a packed z-buffer stream,
+    EMPTY where no entry lands; equal to ``fold_corners(place_min(group,
+    key, batch·4·H·W), ...)`` on any stream.
+
+    ``group``/``key``: (N,) int32 in any order, groups b·4P + plane·P +
+    pixel (P = H·W); groups outside [0, batch·4P) are ignored. CUDA tensors
+    run the fused CUDA kernel (and count a launch); CPU tensors run
+    ``place_min_fold_plain``.
+    """
+    if batch <= 0 or height <= 0 or width <= 0:
+        raise ValueError(f"batch, height, width must be positive, got "
+                         f"{batch}, {height}, {width}")
+    _check(group, key, batch * 4 * height * width)
+    if group.device.type == "cpu":
+        return place_min_fold_plain(group, key, batch=batch, height=height,
+                                    width=width)
+    if group.device.type != "cuda":
+        raise ValueError(f"unsupported device {group.device}")
+    group = group.contiguous()
+    key = key.contiguous()
+    canvas = torch.empty((batch, height, width), dtype=torch.int32,
+                         device=group.device)
+    lib = build.load("placement", _SIGNATURES)
+    build.launch(lib.place_min_fold, group.device, group.data_ptr(),
+                 key.data_ptr(), group.numel(), canvas.data_ptr(), batch,
+                 height, width)
+    place_min_fold.launches += 1
+    return canvas
+
+
+place_min_fold.launches = 0

@@ -3,8 +3,9 @@ the one-hot input.
 
 Counterpart of ``panoptic_forecasting_tpu/kernels/stem.py::
 onehot_stem_conv``. For CUDA tensors ``onehot_stem_conv`` launches the
-hand-written kernel ``csrc/stem.cu`` (a gather of weight rows per tap,
-no one-hot tensor, no GEMM, f32 throughout); for CPU tensors it runs
+hand-written kernel ``csrc/stem.cu`` (input tiles staged in shared
+memory, a gather of one padded weight row per tap, no one-hot tensor, no
+GEMM, f32 throughout); for CPU tensors it runs
 ``onehot_stem_conv_plain``, ``F.one_hot`` + ``F.conv2d`` in plain
 PyTorch. Layouts are the JAX package's: seg/depth (B, T, H, W), kernel
 HWIO (3, 3, C_in, c_out), output NHWC (B, H/2, W/2, c_out).
@@ -21,6 +22,11 @@ import torch.nn.functional as F
 from . import build
 
 _KERNEL_COUT = 16  # csrc/stem.cu computes 16 channels per thread
+_SMEM_LIMIT = 227 * 1024  # shared memory a CTA can opt into on the H100
+_SIGNATURES = {
+    "onehot_stem_conv": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+}
 
 
 def assemble_onehot(seg: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -48,6 +54,14 @@ def onehot_stem_conv_plain(seg: torch.Tensor, depth: Optional[torch.Tensor],
     w = kernel.to(torch.float32).permute(3, 2, 0, 1)  # HWIO -> OIHW
     y = F.conv2d(x, w, bias.to(torch.float32), stride=2, padding=1)
     return torch.relu(y).permute(0, 2, 3, 1)
+
+
+def smem_bytes(frames: int, num_classes: int) -> int:
+    """Dynamic shared memory of ``csrc/stem.cu`` for T frames and C
+    classes: depth rows (9, T, 16), class rows (9, T·C + 1, 17) padded to
+    16 bytes, and per frame a 17-row window of four 34-entry planes."""
+    class_floats = (9 * (frames * num_classes + 1) * 17 + 3) & ~3
+    return 4 * (9 * frames * 16 + class_floats + frames * 17 * 4 * 34)
 
 
 def _check(seg, depth, kernel, bias, num_classes):
@@ -99,34 +113,28 @@ def onehot_stem_conv(seg: torch.Tensor, depth: Optional[torch.Tensor],
             f"the CUDA stem computes {_KERNEL_COUT} channels, got {c_out}"
         )
     b, t, h, w = seg.shape
+    if h * w >= 2**31:
+        raise ValueError(f"a {h}x{w} plane overflows the kernel's int32 index")
+    if smem_bytes(t, num_classes) > _SMEM_LIMIT:
+        raise ValueError(
+            f"T = {t} frames of C = {num_classes} classes need "
+            f"{smem_bytes(t, num_classes)} B of shared memory; the CUDA stem "
+            f"has {_SMEM_LIMIT} (C <= 110 at T = 3)")
     seg = seg.contiguous()
     kernel = kernel.contiguous()
     bias = bias.contiguous()
     dep = depth.contiguous() if depth is not None else None
     out = torch.empty((b, h // 2, w // 2, c_out), dtype=torch.float32,
                       device=seg.device)
-    lib = _lib()
-    with torch.cuda.device(seg.device):
-        err = lib.onehot_stem_conv(
-            seg.data_ptr(), dep.data_ptr() if dep is not None else None,
-            kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, t, h, w, int(num_classes), c_out, int(dep is not None),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"onehot_stem_conv kernel launch failed: CUDA error {err}"
-        )
+    build.launch(
+        build.load("stem", _SIGNATURES).onehot_stem_conv, seg.device,
+        seg.data_ptr(), dep.data_ptr() if dep is not None else None,
+        kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        b, t, h, w, int(num_classes), c_out, int(dep is not None),
+    )
     onehot_stem_conv.launches += 1
     return out
 
 
 onehot_stem_conv.launches = 0
 
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("stem")
-    fn = lib.onehot_stem_conv
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib

@@ -20,6 +20,11 @@ import torch
 from . import build
 
 PROBES = ("strided_ref", "strided_val", "dyn_row_strided")
+_SIGNATURES = {
+    name: (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+           ctypes.c_int, ctypes.c_void_p)
+    for name in PROBES
+}
 
 
 def strided_plain(x: torch.Tensor, start: int) -> torch.Tensor:
@@ -48,12 +53,8 @@ def _probe(name: str):
         out = torch.empty((rows, cols // 2), dtype=x.dtype, device=x.device)
         if out.numel() == 0:
             return out
-        fn = getattr(_lib(), name)
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), out.data_ptr(), rows, cols, start,
-                     torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        build.launch(getattr(build.load("strided_load", _SIGNATURES), name),
+                     x.device, x.data_ptr(), out.data_ptr(), rows, cols, start)
         run.launches += 1
         return out
 
@@ -68,14 +69,3 @@ strided_ref = _probe("strided_ref")
 strided_val = _probe("strided_val")
 dyn_row_strided = _probe("dyn_row_strided")
 
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("strided_load")
-    for name in PROBES:
-        fn = getattr(lib, name)
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib

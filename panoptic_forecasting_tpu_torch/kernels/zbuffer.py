@@ -15,10 +15,12 @@ Two families of paths, routed by ``zbuffer_splat(method=...)`` as in JAX:
 * **packed** (scalar labels <= 255; the path the forecast runs): the
   winner per pixel is the smallest key = depth bits [31:8] | label, so
   depth keeps only its top 24 bits and ties go to the smallest label. The
-  JAX algorithm is kept: one key per point, one group per point in a
-  (batch, corner, pixel) layout of 4 planes per batch, a dense min-canvas
-  (K1, ``placement.place_min``), then the 4-plane corner fold. Only the
-  sort is gone: K1 takes the unsorted stream.
+  JAX stream is kept: one key per point, one group per point in a
+  (batch, corner, pixel) layout of 4 planes per batch. JAX places it
+  sorted into a 4-plane min-canvas and folds the corners; here K1's
+  ``placement.place_min_fold`` places the unsorted stream straight into
+  the one-plane canvas, each point at its <= 4 pixels, with the same
+  result bit for bit.
 * **exact** (``sort``, and ``scatter`` for cross-checking; any label,
   vector payloads such as RGB): the 4N-entry expanded stream, full f32
   depth, ties to the smallest index of the stream. Plain PyTorch, as in
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from .placement import EMPTY, place_min
+from .placement import EMPTY, place_min_fold
 
 _INT_MIN = -2147483648
 
@@ -85,27 +87,6 @@ def packed_stream(uv: torch.Tensor, depth: torch.Tensor, label: torch.Tensor,
     return group + offs[:, None], key
 
 
-def _shift2(c: torch.Tensor, dv: int, du: int) -> torch.Tensor:
-    """Shift (b, H, W) down by dv rows and right by du columns, EMPTY in."""
-    out = torch.full_like(c, EMPTY)
-    h, w = c.shape[-2:]
-    out[:, dv:, du:] = c[:, : h - dv, : w - du]
-    return out
-
-
-def _fold_corners(canvas4: torch.Tensor, b: int, height: int, width: int):
-    """(b·4·P,) corner canvases -> (b, H, W) min canvas (JAX :238-254)."""
-    g = canvas4.view(b, 4, height, width)
-    g0, g1, g2, g3 = g.unbind(1)
-    m00 = torch.minimum(torch.minimum(g0, g1), torch.minimum(g2, g3))
-    m10 = torch.minimum(g1, g3)  # points whose ceil-u corner is base+1
-    m01 = torch.minimum(g2, g3)
-    return torch.minimum(
-        torch.minimum(m00, _shift2(m10, 0, 1)),
-        torch.minimum(_shift2(m01, 1, 0), _shift2(g3, 1, 1)),
-    )
-
-
 def _fill_invalid(depth: torch.Tensor, label: torch.Tensor,
                   valid: torch.Tensor):
     """Invalid points get label 0 (every channel of a vector payload) and
@@ -125,7 +106,8 @@ def _fill_invalid(depth: torch.Tensor, label: torch.Tensor,
 def splat_stream(uv: torch.Tensor, depth: torch.Tensor, label: torch.Tensor,
                  valid: torch.Tensor, *, height: int, width: int,
                  max_label: int = 255):
-    """The (group, key) stream K1 places, and its canvas size.
+    """The (group, key) stream K1 places, and the size of its 4-plane
+    group space.
 
     uv (B, N, 2), depth/label/valid (B, N), labels in [0, max_label] with
     max_label <= 255 (the packed key holds 8 label bits). Returns
@@ -147,14 +129,20 @@ def splat_stream(uv: torch.Tensor, depth: torch.Tensor, label: torch.Tensor,
 
 def _zbuffer_packed(uv, depth, label, valid, height, width, max_label):
     """The packed path on (B, N) streams -> (B, H, W) label and depth."""
-    group, key, num_groups = splat_stream(
+    group, key, _ = splat_stream(
         uv, depth, label, valid, height=height, width=width,
         max_label=max_label,
     )
-    canvas = _fold_corners(place_min(group, key, num_groups), uv.shape[0],
-                           height, width)
+    canvas = place_min_fold(group, key, batch=uv.shape[0], height=height,
+                            width=width)
+    return decode_canvas(canvas, label.dtype)
+
+
+def decode_canvas(canvas: torch.Tensor, label_dtype: torch.dtype):
+    """Packed min canvas -> (label, depth): label bits [7:0] and depth bits
+    [31:8] of each winning key; untouched pixels get label 0, depth -1."""
     touched = canvas != EMPTY
-    out_label = torch.where(touched, canvas & 0xFF, 0).to(label.dtype)
+    out_label = torch.where(touched, canvas & 0xFF, 0).to(label_dtype)
     # All stored depths are positive, so the depth bits are the float bits.
     out_depth = (canvas & ~0xFF).view(torch.float32)
     return out_label, torch.where(touched, out_depth, -1.0)

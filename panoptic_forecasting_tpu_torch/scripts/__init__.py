@@ -2,6 +2,8 @@
 
     python -m panoptic_forecasting_tpu_torch.scripts.prof_minwin [--device cpu]
     python -m panoptic_forecasting_tpu_torch.scripts.prof_strided_load [--device cpu]
+    python -m panoptic_forecasting_tpu_torch.scripts.prof_stem
 
-Each runs on the GPU unless given ``--device cpu``. ``_timing`` holds
-their CUDA-event timer."""
+The first two run on the GPU unless given ``--device cpu``; ``prof_stem``
+(K2 beside ablated builds of it) runs on the GPU only. ``_timing`` holds
+their CUDA-event and profiler timers."""

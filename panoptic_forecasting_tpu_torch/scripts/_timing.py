@@ -1,15 +1,17 @@
-"""CUDA-event timing shared by the port's profiling scripts and
-``chip_smoke.py`` (counterpart of the JAX package's ``bench._timed`` +
-``scripts/prof_common.scan_loop``: K calls per measurement, one
-synchronisation)."""
+"""Timing shared by the port's profiling scripts and ``chip_smoke.py``:
+CUDA events around K calls with one synchronisation (counterpart of the
+JAX package's ``bench._timed`` + ``scripts/prof_common.scan_loop``), and
+the device time torch.profiler sums over the kernels of K calls."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
 import torch
+from torch.profiler import ProfilerActivity, profile, schedule
 
 K = 20
+ATTEMPTS = 5  # profiles device_ms takes before it gives up
 
 
 def time_ms(fn: Callable[[], object], iters: int = K, warmup: int = 3) -> float:
@@ -29,3 +31,58 @@ def time_ms(fn: Callable[[], object], iters: int = K, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+Profile = Dict[str, Tuple[int, float]]  # kernel: (launches, device µs)
+
+
+def kernel_profile(fn: Callable[[], object], calls: int) -> Profile:
+    """Each kernel's launches and summed device µs over ``calls`` calls of
+    ``fn``, recorded after a warm-up step of as many calls that the
+    profiler traces and drops (CUPTI starts slowly). The step's own
+    ``ProfilerStep*`` range, which the profiler files as a device event
+    spanning the step, is left out."""
+    kernels: Profile = {}
+
+    def ready(prof):
+        for e in prof.key_averages():
+            if (str(getattr(e, "device_type", "")).endswith("CUDA") and e.count
+                    and not e.key.startswith("ProfilerStep")):
+                kernels[e.key] = (e.count, e.self_device_time_total)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return kernels
+
+
+def whole(once: Profile, window: Profile, iters: int) -> bool:
+    """Whether ``window`` (``iters`` calls) holds every record: each
+    kernel of one call (``once``) ``iters`` times its launches there, and
+    no other kernel. CUPTI now and then drops records, and a lone call's
+    profile losing exactly 1/iters of what a window lost is unlikely."""
+    return bool(once) and window.keys() == once.keys() and all(
+        window[k][0] == iters * n for k, (n, _) in once.items())
+
+
+def device_ms(fn: Callable[[], object], iters: int = 50) -> float:
+    """Mean device time per call of ``fn``: the kernel time torch.profiler
+    records over ``iters`` calls, over ``iters``. Unlike ``time_ms`` it
+    leaves out the host's time between launches, which bounds a small
+    kernel. Only a whole profile counts (``whole``): it is taken again up
+    to ``ATTEMPTS`` times, then this raises."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms measures on the GPU; CUDA is not available")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(ATTEMPTS):
+        once, window = kernel_profile(fn, 1), kernel_profile(fn, iters)
+        if whole(once, window, iters):
+            return sum(us for _, us in window.values()) / iters / 1e3
+    raise RuntimeError(f"torch.profiler kept no whole profile in {ATTEMPTS} "
+                       f"attempts: device time not measured")

@@ -1,4 +1,4 @@
-"""K3 ``place_minwin`` against the production placement (K1 ``place_min``)
+"""K3 ``place_minwin`` against the generic placement (K1 ``place_min``)
 on the raster-coherent 6.3 M-entry stream of the JAX package's
 ``scripts/experimental_prof_minwin.py``.
 

@@ -77,3 +77,26 @@ def test_stem_rejects_bad_shapes():
                          num_classes=11)
     with pytest.raises(ValueError, match="kernel"):
         onehot_stem_conv(seg, depth, kern, bias, num_classes=10)
+
+
+@pytest.mark.parametrize("t,c_max", [(1, 362), (2, 173), (3, 110)])
+def test_stem_shared_memory_limit(t, c_max):
+    """The CUDA wrapper's class-count limit: the largest C whose shared
+    memory fits 227 KB, and 50.3 kB at the serving T = 3, C = 11."""
+    from panoptic_forecasting_tpu_torch.kernels.stem import _SMEM_LIMIT, smem_bytes
+
+    assert smem_bytes(3, 11) == 50288
+    assert smem_bytes(t, c_max) <= _SMEM_LIMIT < smem_bytes(t, c_max + 1)
+
+
+def test_prof_stem_ablations_find_their_anchors():
+    """scripts/prof_stem.py cuts parts of csrc/stem.cu by textual edits;
+    each anchor must stay in the source exactly once."""
+    from panoptic_forecasting_tpu_torch.kernels import build
+    from panoptic_forecasting_tpu_torch.scripts.prof_stem import ABLATIONS
+
+    src = (build.CSRC / "stem.cu").read_text()
+    for name, edits in ABLATIONS.items():
+        for anchor, repl in edits.items():
+            assert src.count(anchor) == 1, name
+            assert anchor != repl
