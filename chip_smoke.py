@@ -38,11 +38,16 @@ Phases (any failure exits non-zero):
      step);
   7. K3 (place_minwin) on the 6.29 M-entry stream of its entry point:
      canvas bit-equal to its plain version and to K1, overflow equal to
-     the plain version's; edge cases (key 0, sentinels, negative groups,
-     32 equal groups in a warp, N not a multiple of 32, N = 0);
+     the plain version's, and no plain overflow count called on the card
+     (patched to raise); then canvas and overflow bit-equal on the
+     forecast stream (no block's span fits a window) and on edge cases
+     (key 0, sentinels, negative groups with and without the pile split,
+     runs of equal groups, N not a multiple of 32, N = 0, overflow > 0,
+     coherent streams at blocks of 512, 2048, 8192 and 32768 (four tiles
+     a CTA), a block of 518 and a misaligned copy (scalar loads));
   8. the three K4 probes (strided_load) bit-equal to their plain versions
-     on arange(8·2048) and on a seeded random (64, 4096), both lane
-     offsets;
+     on arange(8·2048), a seeded random (64, 4096), C % 4 == 2 and inputs
+     at storage offsets 1 and 4, both lane offsets;
   9. the exact z-buffer through PCTransformModel at 1024x2048, with
      panoptic ids (>= 11000) and with an RGB payload, timed, sort equal
      to scatter; GPU against CPU at 256x512, bit-equal;
@@ -50,10 +55,11 @@ Phases (any failure exits non-zero):
      scripts/prof_strided_load.py) with their launch counters set to 0
      just before each and read just after: each kernel (and the generic
      place_min, which prof_minwin compares against) must have launched;
- 11. timings of K3 and K4 (kernels, plain versions, library calls), and
-     the device time from torch.profiler (``device_ms``: CUDA events
-     around back-to-back calls of a small kernel time the host) of each
-     kernel and of each K4 library call.
+ 11. timings of K3 (its whole call: canvas and overflow from one launch)
+     and K4 (kernels, plain versions, library calls), K3 beside K1 on
+     three streams, and the device time from torch.profiler
+     (``device_ms``: CUDA events around back-to-back calls of a small
+     kernel time the host) of each kernel and of each K4 library call.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (both K1 entry points, K2, K3 and each K4 probe), and last a JSON
@@ -76,8 +82,9 @@ import torch.nn.functional as F
 from panoptic_forecasting_tpu_torch.eval import build_forecast_step
 from panoptic_forecasting_tpu_torch.geometry import rdf_T_flu, unicycle_now_T_prev
 from panoptic_forecasting_tpu_torch.kernels import build, strided_load
+from panoptic_forecasting_tpu_torch.kernels.experimental import minwin
 from panoptic_forecasting_tpu_torch.kernels.experimental.minwin import (
-    minwin_canvas, minwin_overflow, place_minwin, place_minwin_plain,
+    place_minwin, place_minwin_plain,
 )
 from panoptic_forecasting_tpu_torch.kernels.placement import (
     EMPTY, fold_corners, fold_targets, place_min, place_min_fold,
@@ -385,7 +392,7 @@ def stage_breakdown(step, bg, fg, pc_in, fg_in, dev):
     # busy time from the profiler, step time from CUDA events (unprofiled)
     busy = device_ms(lambda: step(pc_dev, fg_dev), 5)
     per_step = ms["step_device_inputs"]
-    print(f"[profile] one step: device busy {busy:.2f} ms (profiler) of "
+    print(f"[profile] one step: device busy {busy:.4f} ms (profiler) of "
           f"{per_step:.2f} ms per step (CUDA events): idle share "
           f"{1 - busy / per_step:.3f}")
     kernels = kernel_profile(lambda: step(pc_dev, fg_dev), 1)
@@ -410,7 +417,7 @@ def check_output(out, height: int, width: int):
     return float((pan >= 11000).float().mean())
 
 
-COUNTED = (place_min_fold, place_min, onehot_stem_conv, minwin_canvas,
+COUNTED = (place_min_fold, place_min, onehot_stem_conv, place_minwin,
            *(getattr(strided_load, p) for p in strided_load.PROBES))
 
 
@@ -430,9 +437,67 @@ def k3_stream(dev):
             prof_minwin.FRAMES * H * W, prof_minwin.pile_kwargs(H, W))
 
 
-def k3_checks(group, key, num_groups, pk):
+def k3_edge_streams(gen):
+    """(group, num_groups, place_minwin kwargs) of K3's edge cases, as CPU
+    tensors: the windows of three other block sizes, blocks whose span
+    does not fit, negative groups with and without the pile split, a
+    stream with overflow > 0, blocks of four tiles and a block that is no
+    multiple of 4 (the scalar loads)."""
+    def coherent(n, g, jitter, seed):
+        rng = np.random.RandomState(seed)
+        base = np.linspace(0, g - jitter, n).astype(np.int64)
+        return np.clip(base + rng.randint(-jitter, jitter, n), 0, g - 1)
+
+    mixed = torch.randint(-3000, 70000, (100_003,), generator=gen,
+                          dtype=torch.int32)
+    mixed[::13] = 2**30
+    mixed[5::17] = 2**31 - 1
+    runs = torch.randint(0, 5000, (4096,), generator=gen, dtype=torch.int32)
+    # like tests/test_torch_port_minwin.py's negative_groups stream
+    rng = np.random.RandomState(8)
+    neg = coherent(6144, 8192, 30, 9)
+    neg = np.where(rng.rand(6144) < 0.03, -rng.randint(1, 3000, 6144), neg)
+    piles = coherent(300_001, 6 * 65536, 100, 10)
+    dense = coherent(300_001, 2 * 65536, 100, 12)
+    rng = np.random.RandomState(11)
+    piles = np.where(rng.rand(piles.size) < 0.015,
+                     (piles // 65536) * 65536 + rng.randint(0, 512, piles.size),
+                     piles)
+    # tests/test_torch_port_minwin.py's overflow_detection stream
+    over = np.random.RandomState(3).randint(0, 1024 * 30, 512 * 40)
+    small = dict(block=512, sw=1024)
+    pile_split = dict(plane_size=65536, pile_width=1024)
+    as_t = lambda a: torch.from_numpy(a.astype(np.int32))
+    return {
+        # key 0, sentinels past the canvas, negative groups, N % 32 != 0
+        "mixed": (mixed, 65536, small),
+        "mixed_piles": (mixed, 65536, dict(small, plane_size=4096,
+                                           pile_width=128)),
+        # whole warps on one group, and runs of 16 that straddle warps
+        "warp_runs": (runs.repeat_interleave(32), 5000, small),
+        "half_warp_runs": (runs.repeat_interleave(16)[8:], 5000, small),
+        "one_group": (torch.full((70_001,), 7, dtype=torch.int32), 16, small),
+        "tiny": (torch.randint(0, 40, (37,), generator=gen, dtype=torch.int32),
+                 40, small),
+        "empty": (torch.zeros(0, dtype=torch.int32), 300, small),
+        "negative_piles": (as_t(neg), 8192, dict(small, plane_size=2048,
+                                                 pile_width=64)),
+        "negative": (as_t(neg), 8192, small),
+        "overflow": (as_t(over), 1024 * 30, small),
+        "coherent_512": (as_t(piles), 6 * 65536, dict(small, **pile_split)),
+        "coherent_2048": (as_t(piles), 6 * 65536, dict(block=2048, **pile_split)),
+        "coherent_8192": (as_t(piles), 6 * 65536, dict(block=8192, **pile_split)),
+        "four_tiles": (as_t(dense), 2 * 65536, dict(block=32768, **pile_split)),
+        "block_518": (as_t(piles), 6 * 65536, dict(block=518, sub=259,
+                                                   **pile_split)),
+    }
+
+
+def k3_checks(group, key, num_groups, pk, forecast):
     """Phase 7: K3 against its plain version and K1 on the entry point's
-    stream, then on edge cases. Returns the max abs canvas difference."""
+    stream, then on the forecast stream (no window fits), edge cases and
+    a misaligned copy (scalar loads); place_minwin on the card must not
+    call the plain overflow count. Returns the max abs canvas difference."""
     canvas, ov = place_minwin(group, key, num_groups=num_groups, **pk)
     ref, ov_ref = place_minwin_plain(group, key, num_groups=num_groups, **pk)
     k1 = place_min(group, key, num_groups)
@@ -447,6 +512,18 @@ def k3_checks(group, key, num_groups, pk):
           f"bit-equal to its plain version and to K1, overflow {int(ov)}")
 
     dev = group.device
+    saved = (minwin.minwin_overflow, minwin.minwin_block_chunks)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain overflow count ran on the card")
+
+    minwin.minwin_overflow = minwin.minwin_block_chunks = refuse
+    try:
+        place_minwin(group, key, num_groups=num_groups, **pk)
+    finally:
+        minwin.minwin_overflow, minwin.minwin_block_chunks = saved
+    print("[K3] place_minwin on the card calls no plain overflow count")
+
     g = torch.Generator().manual_seed(SEED + 2)
 
     def keys(n):
@@ -454,54 +531,68 @@ def k3_checks(group, key, num_groups, pk):
         k[::9] = 0
         return k
 
-    mixed = torch.randint(-3000, 70000, (100_003,), generator=g, dtype=torch.int32)
-    mixed[::13] = 2**30
-    mixed[5::17] = 2**31 - 1
-    runs = torch.randint(0, 5000, (4096,), generator=g, dtype=torch.int32)
-    cases = {
-        # key 0, sentinels past the canvas, negative groups, N % 32 != 0
-        "mixed": (mixed, 65536, {}),
-        "mixed_piles": (mixed, 65536, dict(plane_size=4096, pile_width=128)),
-        # whole warps on one group, and runs of 16 that straddle warps
-        "warp_runs": (runs.repeat_interleave(32), 5000, {}),
-        "half_warp_runs": (runs.repeat_interleave(16)[8:], 5000, {}),
-        "one_group": (torch.full((70_001,), 7, dtype=torch.int32), 16, {}),
-        "tiny": (torch.randint(0, 40, (37,), generator=g, dtype=torch.int32), 40, {}),
-        "empty": (torch.zeros(0, dtype=torch.int32), 300, {}),
-    }
+    cases = k3_edge_streams(g)
+    f_group, f_key, f_groups = forecast
+    cases["forecast"] = (f_group, f_groups, {})
+    overflows = {}
     for name, (grp, n_groups, kw) in cases.items():
-        grp, k = grp.to(dev), keys(grp.numel()).to(dev)
-        got = place_minwin(grp, k, num_groups=n_groups, block=512, sw=1024, **kw)
-        want = place_minwin_plain(grp, k, num_groups=n_groups, block=512,
-                                  sw=1024, **kw)
+        grp = grp.to(dev)
+        k = f_key if name == "forecast" else keys(grp.numel()).to(dev)
+        got = place_minwin(grp, k, num_groups=n_groups, **kw)
+        want = place_minwin_plain(grp, k, num_groups=n_groups, **kw)
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise SystemExit(f"K3 edge case {name} differs from its plain version")
-    print(f"[edge] K3 bit-equal on {', '.join(cases)}")
+            raise SystemExit(f"K3 edge case {name} differs from its plain "
+                             f"version: overflow {int(got[1])} vs "
+                             f"{int(want[1])}, {int((got[0] != want[0]).sum())}"
+                             f" groups")
+        overflows[name] = int(got[1])
+        if name == "coherent_512":  # the same values at storage offset 1
+            flat = torch.empty(2 * grp.numel() + 2, dtype=torch.int32, device=dev)
+            flat[1:grp.numel() + 1] = grp
+            flat[grp.numel() + 2:] = k
+            mis = place_minwin(flat[1:grp.numel() + 1], flat[grp.numel() + 2:],
+                               num_groups=n_groups, **kw)
+            if not (torch.equal(mis[0], want[0]) and torch.equal(mis[1], want[1])):
+                raise SystemExit("K3 on a misaligned stream differs")
+    if overflows["overflow"] <= 0:
+        raise SystemExit("K3's overflow stream reported no overflow")
+    print(f"[edge] K3 bit-equal (canvas and overflow) on "
+          f"{', '.join(cases)} and a misaligned copy; overflows {overflows}")
     return err
 
 
 def k4_checks(dev):
-    """Phase 8: every K4 probe bit-equal to its plain version. Returns the
-    max abs difference."""
+    """Phase 8: every K4 probe bit-equal to its plain version, on the
+    16-byte path and on the scalar one (C % 4 == 2, an input at storage
+    offset 1). Returns the max abs difference."""
     g = torch.Generator().manual_seed(SEED + 4)
-    xs = (torch.arange(8 * 2048, dtype=torch.float32).reshape(8, 2048),
-          torch.randn(64, 4096, generator=g),
-          torch.randn(3, 3002, generator=g))  # a ragged last shared-memory tile
+
+    def offset(x, by):  # the same values `by` floats past an aligned start
+        flat = torch.empty(x.numel() + by, dtype=x.dtype, device=dev)
+        flat[by:] = x.reshape(-1).to(dev)
+        return flat[by:].view(x.shape)
+
+    xs = {"(8, 2048)": torch.arange(8 * 2048, dtype=torch.float32).reshape(8, 2048),
+          "(64, 4096)": torch.randn(64, 4096, generator=g),
+          "(3, 3002)": torch.randn(3, 3002, generator=g),  # C % 4 == 2
+          "(8, 2048) at offset 1": offset(torch.randn(8, 2048, generator=g), 1),
+          "(5, 1026) at offset 4": offset(torch.randn(5, 1026, generator=g), 4),
+          "(64, 4096) at offset 4": offset(torch.randn(64, 4096, generator=g), 4)}
     err = 0.0
     for name in strided_load.PROBES:
         probe = getattr(strided_load, name)
-        for x in xs:
+        for shape, x in xs.items():
             x = x.to(dev)
             for start in (0, 1):
                 got = probe(x, start)
                 want = strided_load.strided_plain(x, start)
                 err = max(err, float((got - want).abs().max()))
                 if not torch.equal(got, want):
-                    raise SystemExit(f"K4 {name} differs at {tuple(x.shape)}, "
+                    raise SystemExit(f"K4 {name} differs at {shape}, "
                                      f"start {start}")
     torch.cuda.synchronize()
     print(f"[K4] {', '.join(strided_load.PROBES)} bit-equal on "
-          f"{', '.join(str(tuple(x.shape)) for x in xs)}, start 0 and 1")
+          f"{', '.join(xs)}, start 0 and 1")
     return err
 
 
@@ -578,7 +669,7 @@ def entry_points():
     rc = prof_minwin.main([])
     k3 = read_counts()
     print(f"[entry] prof_minwin rc {rc}, launches {k3}")
-    if rc != 0 or min(k3["minwin_canvas"], k3["place_min"]) < 1:
+    if rc != 0 or min(k3["place_minwin"], k3["place_min"]) < 1:
         raise SystemExit("the K3 entry point failed or did not launch K3 "
                          "and the generic K1")
     reset_counts()
@@ -734,7 +825,8 @@ def main() -> int:
 
     # ---- 7. K3 against its plain version and K1 -----------------------------
     k3_group, k3_key, k3_groups, pk = k3_stream(dev)
-    k3_err = k3_checks(k3_group, k3_key, k3_groups, pk)
+    k3_err = k3_checks(k3_group, k3_key, k3_groups, pk,
+                       (group, key, num_groups))
 
     # ---- 8. K4 against its plain versions -------------------------------------
     k4_err = k4_checks(dev)
@@ -746,39 +838,42 @@ def main() -> int:
     k3_launches, k4_launches = entry_points()
 
     # ---- 11. K3 and K4 timings ---------------------------------------------------
-    k3_g64 = k3_group.long()
-    k3_filled = torch.full((k3_groups,), EMPTY, dtype=torch.int32, device=dev)
-    times.update({
-        "k3": time_ms(lambda: minwin_canvas(k3_group, k3_key, k3_groups)),
-        "k3_plain": time_ms(lambda: place_min_plain(k3_group, k3_key, k3_groups)),
-        "k3_lib": time_ms(lambda: torch.scatter_reduce(
-            k3_filled, 0, k3_g64, k3_key, "amin")),
-        "k3_overflow": time_ms(lambda: minwin_overflow(
-            k3_group, num_groups=k3_groups, block=4096, sw=65536, **pk)),
-        "k3_wrapper": time_ms(lambda: place_minwin(
-            k3_group, k3_key, num_groups=k3_groups, **pk)),
-        "k3_wrapper_plain": time_ms(lambda: place_minwin_plain(
-            k3_group, k3_key, num_groups=k3_groups, **pk)),
-        "k1_device": device_ms(lambda: place_min(group, key, num_groups)),
-        "k2_device": device_ms(lambda: onehot_stem_conv(seg, dep, kern, bias,
-                                                        num_classes=11)),
-        "k3_device": device_ms(lambda: minwin_canvas(k3_group, k3_key,
-                                                     k3_groups)),
-    })
-    # K3 against K1 on three streams: K3's own (coherent, few duplicates
-    # in a warp), the forecast's z-buffer stream, and whole warps on one
-    # group (where warp aggregation saves 31 of 32 atomics).
+    # K3 against K1 on three streams: K3's own (coherent: nearly every
+    # entry lands in its block's window), the forecast's z-buffer stream
+    # (no window fits) and whole warps on one group (no window fits; runs
+    # of equal groups). Every CUDA-event time before any profiled one.
     runs = torch.randint(0, k3_groups, (k3_group.numel() // 32,),
                          generator=torch.Generator().manual_seed(SEED + 6),
                          dtype=torch.int32).repeat_interleave(32).to(dev)
-    for name, (g_s, k_s, n_s) in {
-            "k3_stream": (k3_group, k3_key, k3_groups),
-            "forecast_stream": (group, key, num_groups),
-            "warp_runs": (runs, k3_key, k3_groups)}.items():
-        t_k3 = time_ms(lambda: minwin_canvas(g_s, k_s, n_s))
-        t_k1 = time_ms(lambda: place_min(g_s, k_s, n_s))
-        print(f"[time] {name} ({g_s.numel()} entries, {n_s} groups): "
-              f"K3 {t_k3:.4f} ms, K1 {t_k1:.4f} ms")
+    calls = {}
+    for name, (g_s, k_s, n_s, kw) in {
+            "k3_stream": (k3_group, k3_key, k3_groups, pk),
+            "forecast_stream": (group, key, num_groups, {}),
+            "warp_runs": (runs, k3_key, k3_groups, {})}.items():
+        calls[name] = (
+            lambda g_s=g_s, k_s=k_s, n_s=n_s, kw=kw: place_minwin(
+                g_s, k_s, num_groups=n_s, **kw),
+            lambda g_s=g_s, k_s=k_s, n_s=n_s: place_min(g_s, k_s, n_s))
+    k3_streams = {name: {"k3_ms": time_ms(k3_call), "k1_ms": time_ms(k1_call)}
+                  for name, (k3_call, k1_call) in calls.items()}
+    k3_g64 = k3_group.long()
+    k3_filled = torch.full((k3_groups,), EMPTY, dtype=torch.int32, device=dev)
+    times.update({
+        "k3": time_ms(calls["k3_stream"][0]),
+        "k3_plain": time_ms(lambda: place_minwin_plain(
+            k3_group, k3_key, num_groups=k3_groups, **pk)),
+        "k3_lib": time_ms(lambda: torch.scatter_reduce(
+            k3_filled, 0, k3_g64, k3_key, "amin")),
+        "k1_device": device_ms(lambda: place_min(group, key, num_groups)),
+        "k2_device": device_ms(lambda: onehot_stem_conv(
+            seg, dep, kern, bias, num_classes=11)),
+        "k3_device": device_ms(calls["k3_stream"][0]),
+    })
+    for name, (k3_call, k1_call) in calls.items():
+        k3_streams[name].update(k3_device_ms=device_ms(k3_call),
+                                k1_device_ms=device_ms(k1_call))
+        print(f"[time] {name}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in k3_streams[name].items()))
     x4 = torch.arange(prof_strided_load.ROWS * prof_strided_load.COLS,
                       dtype=torch.float32, device=dev).reshape(
                           prof_strided_load.ROWS, prof_strided_load.COLS)
@@ -845,14 +940,15 @@ def main() -> int:
         {"name": "place_minwin", "route": "cuda",
          "source": "panoptic_forecasting_tpu_torch/csrc/minwin.cu",
          "replaces": "panoptic_forecasting_tpu/kernels/experimental/minwin.py:201",
-         "launches": k3_launches["minwin_canvas"], "max_abs_err": k3_err,
+         "launches": k3_launches["place_minwin"], "max_abs_err": k3_err,
          "ms": times["k3"], "plain_ms": times["k3_plain"],
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": times["k3_lib"],
-         "device_ms": times["k3_device"],
-         "overflow_ms": times["k3_overflow"], "wrapper_ms": times["k3_wrapper"],
-         "wrapper_plain_ms": times["k3_wrapper_plain"],
-         "note": "ms: the canvas kernel (minwin_canvas); wrapper_ms adds the "
-                 "plain-PyTorch overflow count (place_minwin)"})
+         "device_ms": times["k3_device"], "earlier_ms": None,
+         "earlier_device_ms": None, "streams": k3_streams,
+         "note": "ms: the whole place_minwin call, canvas and overflow from "
+                 "one launch of the kernel (the overflow is counted inside "
+                 "it); earlier_ms: the previous kernel is no longer in the "
+                 "tree; its time is in PERF.md"})
     k4_bound, k4_by = bound_ms(x4.numel() * 4 + x4.numel() // 2 * 4, 0)
     for name in strided_load.PROBES:
         kernels.append(
@@ -865,9 +961,14 @@ def main() -> int:
              "library_ms": times[f"k4_{name}_lib"],
              "device_ms": times[f"k4_{name}_device"],
              "library_device_ms": times[f"k4_{name}_lib_device"],
+             **({} if name == "strided_ref" else
+                {"earlier_ms": None, "earlier_device_ms": None}),
              "note": f"library call x[:, {k4_start[name]}::2].contiguous(), "
                      "the plain version's own call; at 98,304 bytes a "
-                     "launch dominates"})
+                     "launch dominates"
+                     + ("" if name == "strided_ref" else
+                        "; earlier_ms: the previous kernel is no longer in "
+                        "the tree; its time is in PERF.md")})
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

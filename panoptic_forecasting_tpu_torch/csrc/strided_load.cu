@@ -18,22 +18,27 @@
 //   straight from global memory. A warp's 32 reads span 256 bytes, so
 //   half of every sector it fetches is thrown away; its writes are
 //   coalesced.
-// * strided_val: a block copies a tile of one row into shared memory
-//   with coalesced reads (every byte of each sector used), then writes
-//   the selected lanes from shared memory (a stride-2 read there costs a
-//   two-way bank conflict).
-// * dyn_row_strided: ONE block walks the rows in a runtime loop, the row
-//   index a value computed in the loop, each row's lanes read with
-//   stride 2 as in strided_ref. It uses one SM of 132 and is the
-//   slowest by design: it is the probe of that pattern, not a copy
-//   kernel to use.
+// * strided_val: the value loaded whole into registers. Each thread
+//   reads one quad of four input floats with a 16-byte load and stores
+//   the two it keeps ({v.x, v.z} for start 0, {v.y, v.w} for start 1) as
+//   one 8-byte store; no shared memory, no barrier. 128-thread CTAs over
+//   the R*C/4 quads: the probe's 4,096 quads take 32 CTAs on 32 SMs.
+// * dyn_row_strided: the probe of a row index computed in a runtime
+//   loop, reading the odd lanes of each row. The CTAs take rows in a
+//   grid-stride loop (grid.y of them, two rows each), each CTA one slice
+//   of a row's quads (grid.x), with strided_val's vector loads: 8 slices
+//   x 4 row-CTAs = 32 CTAs at the probe's size.
+// A quad takes the 16-byte path when the input is 16-byte aligned and
+// C % 4 == 0 (every row then starts aligned); otherwise (C % 4 == 2, an
+// input at an odd storage offset) the same kernel reads the quad's two
+// kept floats as scalars.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 2048;  // input floats per strided_val block: 8 KB
+constexpr int kQuadThreads = 128;  // strided_val, dyn_row_strided
 
 __global__ void strided_ref_kernel(const float* __restrict__ x,
                                    float* __restrict__ out, int64_t rows,
@@ -49,41 +54,64 @@ __global__ void strided_ref_kernel(const float* __restrict__ x,
   }
 }
 
-// Grid (ceil(cols / kTile), rows): block (t, r) handles input columns
-// [t·kTile, min((t+1)·kTile, cols)) of row r; kTile is even, so each
-// tile's outputs are the contiguous run starting at t·kTile / 2.
-__global__ void strided_val_kernel(const float* __restrict__ x,
-                                   float* __restrict__ out, int64_t cols,
-                                   int start) {
-  __shared__ float tile[kTile];
-  const int64_t r = blockIdx.y;
-  const int64_t c0 = (int64_t)blockIdx.x * kTile;
-  const int64_t n = cols - c0 < kTile ? cols - c0 : kTile;
-  const float* src = x + r * cols + c0;
-  for (int64_t j = threadIdx.x; j < n; j += blockDim.x) tile[j] = src[j];
-  __syncthreads();
-  float* dst = out + r * (cols / 2) + c0 / 2;
-  for (int64_t j = threadIdx.x; j < n / 2; j += blockDim.x) {
-    dst[j] = tile[start + 2 * j];
+// Quad q of a row (input floats 4q..4q+3, outputs 2q and 2q+1): the
+// outputs that exist (half = cols / 2 may be odd) from lanes start + 4q
+// and start + 4q + 2.
+template <bool kVec>
+__device__ __forceinline__ void copy_quad(const float* __restrict__ row,
+                                          float* __restrict__ dst,
+                                          int64_t q, int64_t half,
+                                          int start) {
+  if (kVec) {
+    const float4 v = __ldcs(reinterpret_cast<const float4*>(row) + q);
+    reinterpret_cast<float2*>(dst)[q] =
+        start ? make_float2(v.y, v.w) : make_float2(v.x, v.z);
+  } else {
+    const int64_t o = 2 * q;
+    dst[o] = row[start + 2 * o];
+    if (o + 1 < half) dst[o + 1] = row[start + 2 * o + 2];
   }
 }
 
+template <bool kVec>
+__global__ void strided_val_kernel(const float* __restrict__ x,
+                                   float* __restrict__ out, int64_t rows,
+                                   int64_t cols, int start) {
+  const int64_t half = cols / 2;
+  const int64_t quads = (half + 1) / 2;  // per row
+  const int64_t total = rows * quads;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    const int64_t r = i / quads;
+    copy_quad<kVec>(x + r * cols, out + r * half, i - r * quads, half, start);
+  }
+}
+
+// Grid (slices, row CTAs): CTA (sx, sy) copies quads [sx * T, sx * T + T)
+// of rows sy, sy + gridDim.y, ...
+template <bool kVec>
 __global__ void dyn_row_strided_kernel(const float* __restrict__ x,
                                        float* __restrict__ out,
                                        int64_t rows, int64_t cols,
                                        int start) {
   const int64_t half = cols / 2;
-  for (int64_t r = 0; r < rows; ++r) {
-    const float* row = x + r * cols + start;
-    float* dst = out + r * half;
-    for (int64_t c = threadIdx.x; c < half; c += blockDim.x) {
-      dst[c] = row[2 * c];
-    }
+  const int64_t quads = (half + 1) / 2;
+  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= quads) return;
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    copy_quad<kVec>(x + r * cols, out + r * half, q, half, start);
   }
 }
 
-int grid_for(int64_t n) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
+bool vector_ok(const void* x, const void* out, int64_t cols) {
+  return cols % 4 == 0 && ((uintptr_t)x & 15) == 0 &&
+         ((uintptr_t)out & 7) == 0;
+}
+
+// CTAs of `threads` for n items; a grid-stride loop takes the rest.
+int grid_for(int64_t n, int threads) {
+  int64_t blocks = (n + threads - 1) / threads;
   const int64_t cap = 132 * 16;
   if (blocks > cap) blocks = cap;
   return blocks < 1 ? 1 : (int)blocks;
@@ -97,7 +125,8 @@ int grid_for(int64_t n) {
 extern "C" int strided_ref(const void* x, void* out, int64_t rows,
                            int64_t cols, int start, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  strided_ref_kernel<<<grid_for(rows * (cols / 2)), kThreads, 0, s>>>(
+  const int blocks = grid_for(rows * (cols / 2), kThreads);
+  strided_ref_kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<float*>(out), rows, cols,
       start);
   return (int)cudaGetLastError();
@@ -106,18 +135,38 @@ extern "C" int strided_ref(const void* x, void* out, int64_t rows,
 extern "C" int strided_val(const void* x, void* out, int64_t rows,
                            int64_t cols, int start, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned)((cols + kTile - 1) / kTile), (unsigned)rows);
-  strided_val_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), cols, start);
+  const int blocks = grid_for(rows * ((cols / 2 + 1) / 2), kQuadThreads);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  if (vector_ok(x, out, cols)) {
+    strided_val_kernel<true><<<blocks, kQuadThreads, 0, s>>>(
+        xf, of, rows, cols, start);
+  } else {
+    strided_val_kernel<false><<<blocks, kQuadThreads, 0, s>>>(
+        xf, of, rows, cols, start);
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int dyn_row_strided(const void* x, void* out, int64_t rows,
                                int64_t cols, int start, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dyn_row_strided_kernel<<<1, 1024, 0, s>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), rows, cols,
-      start);
+  const int64_t quads = (cols / 2 + 1) / 2;
+  const int64_t slices = (quads + kQuadThreads - 1) / kQuadThreads;
+  int64_t row_ctas = (rows + 1) / 2;  // two rows per CTA
+  if (row_ctas > 65535) row_ctas = 65535;
+  if (slices > 0x7FFFFFFF || row_ctas < 1) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const dim3 grid((unsigned)slices, (unsigned)row_ctas);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  if (vector_ok(x, out, cols)) {
+    dyn_row_strided_kernel<true><<<grid, kQuadThreads, 0, s>>>(
+        xf, of, rows, cols, start);
+  } else {
+    dyn_row_strided_kernel<false><<<grid, kQuadThreads, 0, s>>>(
+        xf, of, rows, cols, start);
+  }
   return (int)cudaGetLastError();
 }

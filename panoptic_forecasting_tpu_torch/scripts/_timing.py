@@ -5,6 +5,8 @@ the device time torch.profiler sums over the kernels of K calls."""
 
 from __future__ import annotations
 
+import sys
+import time
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -12,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 K = 20
 ATTEMPTS = 5  # profiles device_ms takes before it gives up
+EDGE_S = 0.002  # host idle before and after the calls of a profiled step
 
 
 def time_ms(fn: Callable[[], object], iters: int = K, warmup: int = 3) -> float:
@@ -39,7 +42,10 @@ Profile = Dict[str, Tuple[int, float]]  # kernel: (launches, device µs)
 def kernel_profile(fn: Callable[[], object], calls: int) -> Profile:
     """Each kernel's launches and summed device µs over ``calls`` calls of
     ``fn``, recorded after a warm-up step of as many calls that the
-    profiler traces and drops (CUPTI starts slowly). The step's own
+    profiler traces and drops (CUPTI starts slowly). In each step the
+    calls keep ``EDGE_S`` of host idle from its edges: without it the
+    records of kernels launched right after a step began were now and
+    then lost (most often in a one-call step). The step's own
     ``ProfilerStep*`` range, which the profiler files as a device event
     spanning the step, is left out."""
     kernels: Profile = {}
@@ -54,9 +60,11 @@ def kernel_profile(fn: Callable[[], object], calls: int) -> Profile:
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=ready) as prof:
         for _ in range(2):
+            time.sleep(EDGE_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(EDGE_S)
             prof.step()
     return kernels
 
@@ -80,9 +88,12 @@ def device_ms(fn: Callable[[], object], iters: int = 50) -> float:
         raise RuntimeError("device_ms measures on the GPU; CUDA is not available")
     fn()
     torch.cuda.synchronize()
-    for _ in range(ATTEMPTS):
+    for attempt in range(ATTEMPTS):
         once, window = kernel_profile(fn, 1), kernel_profile(fn, iters)
         if whole(once, window, iters):
             return sum(us for _, us in window.values()) / iters / 1e3
+        counts = [{k[:48]: n for k, (n, _) in p.items()} for p in (once, window)]
+        print(f"[device_ms] attempt {attempt + 1}: not whole; one call "
+              f"{counts[0]}, {iters} calls {counts[1]}", file=sys.stderr)
     raise RuntimeError(f"torch.profiler kept no whole profile in {ATTEMPTS} "
                        f"attempts: device time not measured")

@@ -8,8 +8,10 @@ Prints ``overflow:`` (what the TPU kernel's static capacity would report
 on this stream) and the canvas mismatches against K1, CUDA-event times
 of ``minwin_unsorted``, ``minwin_on_sorted`` and ``place_min`` (on the
 GPU only: a CPU run prints none), then the overflow for each (block, win)
-of the JAX script's sweep. The CUDA kernel has no window, so the sweep
-has no times. Exits 1 when the canvases differ.
+of the JAX script's sweep, each from one launch of the CUDA kernel on the
+GPU. ``win`` shapes only the TPU kernel's windows (the CUDA kernel's
+window follows ``block``), so the sweep has no times. Exits 1 when the
+canvases differ.
 """
 
 from __future__ import annotations
