@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths once each. The single-call panoptic
+Drives the port's main paths once each: the serving CLI
+(``python -m panoptic_forecasting_tpu_torch.cli.forecast_fused``, phase
+12) and the single-call panoptic
 forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
@@ -59,27 +61,58 @@ Phases (any failure exits non-zero):
      and K4 (kernels, plain versions, library calls), K3 beside K1 on
      three streams, and the device time from torch.profiler
      (``device_ms``: CUDA events around back-to-back calls of a small
-     kernel time the host) of each kernel and of each K4 library call.
+     kernel time the host) of each kernel and of each K4 library call;
+ 12. the serving CLI (``cli/forecast_fused.py::run``) on a 1024x2048
+     fixture from the port's data/synthetic.py (7 Cityscapes snippets, 6
+     fg scenes of 8 instance slots with 256x14x14 features, predicted
+     odometry, bg canvases) with seeded weights of the two configs above
+     in the port's checkpoints, launch counters set to 0 just before and
+     read just after: place_min_fold and onehot_stem_conv once per frame,
+     the generic place_min never; each PNG equal to the step's map on
+     the same frame's inputs, the json listing every frame and the
+     backfilled gt frame; per-frame host times of the pc fetch, the fg
+     batch, the step and the PNG write, and frames per second; then a
+     256x512 run of the CLI on the card against the same on the CPU
+     (segment ids equal, < 1e-3 of pixels differing) and the PNG decode
+     time at 1024x2048. A reader format whose package (pandas, h5py) is
+     missing here is served from the fixture's in-memory store
+     (``data/synthetic.py::readers_from_store``); the script prints which
+     of PyYAML, Pillow, pandas and h5py import.
 
 Prints the card's name and power limit, one JSON line describing every
-kernel (both K1 entry points, K2, K3 and each K4 probe), and last a JSON
-line {"ok": true, "device": {...}}. Exits non-zero without a result when
+kernel (both K1 entry points, K2, K3 and each K4 probe) and the CLI's
+readings, and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
 """
 
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from panoptic_forecasting_tpu_torch.cli import forecast_fused
+from panoptic_forecasting_tpu_torch.cli.common import restore_params, setup
+from panoptic_forecasting_tpu_torch.core import build_dataset, build_model
+from panoptic_forecasting_tpu_torch.core import checkpoint as ckpt
+from panoptic_forecasting_tpu_torch.core.config import Config
+from panoptic_forecasting_tpu_torch.data import png, synthetic
+from panoptic_forecasting_tpu_torch.data.cityscapes import id_to_train_id_lut
+from panoptic_forecasting_tpu_torch.data.io import load_png, save_png
 from panoptic_forecasting_tpu_torch.eval import build_forecast_step
+from panoptic_forecasting_tpu_torch.eval.panoptic_protocol import (
+    relabel_panoptic_trainid_to_labelid,
+)
+from panoptic_forecasting_tpu_torch.eval.pq import decode_panoptic_png
 from panoptic_forecasting_tpu_torch.geometry import rdf_T_flu, unicycle_now_T_prev
 from panoptic_forecasting_tpu_torch.kernels import build, strided_load
 from panoptic_forecasting_tpu_torch.kernels.experimental import minwin
@@ -682,6 +715,217 @@ def entry_points():
 
 
 
+# ---- 12. the serving CLI ------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI_SCENES = 6  # fg scenes = forecast frames; one more gt frame is backfilled
+OPTIONAL = ("yaml", "PIL", "pandas", "h5py")
+
+
+def optional_packages():
+    """Which of the readers' optional packages import here."""
+    return {m: importlib.util.find_spec(m) is not None for m in OPTIONAL}
+
+
+def cli_fixture(root, height, width, n_scenes):
+    """The serving fixture under ``root`` (port's data/synthetic.py,
+    short-term: pc gap 3, fg output_ind 0, predicted odometry, bg
+    canvases), seeded weights of configs/bg/bg_val_short.yaml and
+    configs/fg/fg_val_short.yaml in the port's checkpoint format, and the
+    CLI config. Returns (cfg, store)."""
+    import yaml
+
+    def conf(*parts):
+        with open(os.path.join(REPO, "configs", *parts)) as f:
+            return yaml.safe_load(f)
+
+    def dump(name, cfg):
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    cs, fg, odom, canvases = (os.path.join(root, d)
+                              for d in ("cs", "fg", "odom", "bg_export"))
+    store = synthetic.write_cityscapes_fixture(
+        cs, "val", n_snippets=n_scenes + 1, height=height, width=width,
+        seed=SEED, gap_len=3)
+    synthetic.write_fg_fixture(fg, splits=("val",), n_scenes=n_scenes,
+                               max_instances=N_INST, seed=SEED, store=store)
+    for reader, rows in (("odometry", os.path.join(cs, "val_3d_info.pkl")),
+                         ("predicted_odometry", os.path.join(fg, "val_3d_info.pkl"))):
+        synthetic.write_odom_predictions(
+            os.path.join(odom, f"{reader}_val.h5"), store["tables"][rows],
+            starts=(16,), seed=SEED, store=store)
+    for s in range(n_scenes + 1):  # bg canvases: the gt frame's stuff
+        seg = synthetic.make_scene_sequence(20, height, width, SEED + s)[0][19]
+        save_png(os.path.join(canvases, "val", synthetic.CITY,
+                              f"{synthetic.CITY}_{s:06d}_000019_gtFine_labelIds.png"),
+                 np.where(seg >= 11, 255, seg).astype(np.uint8))
+
+    pc = conf("pc_transform", "pc_export.yaml")
+    pc["data"].update(cityscapes_dir=cs, data_dir=cs, seg_dir=os.path.join(cs, "seg"),
+                      gap_len=3, odom_pred_dir=odom, data_splits=["val"])
+    bg = conf("bg", "bg_val_short.yaml")
+    bg["model"].update(final_h=height, final_w=width)
+    fg_cfg = conf("fg", "fg_val_short.yaml")
+    fg_cfg["data"].update(data_dir=fg, depth_dir=fg, feats_dir=fg, info_3d_dir=fg,
+                          cityscapes_dir=cs, odom_pred_dir=odom,
+                          background_dir=canvases)
+    bg_dir, wd = os.path.join(root, "bg_run"), os.path.join(root, "fg_run")
+    card = build_dataset(bg, test=True).card
+    ckpt.save_model(bg_dir, seeded_init_(build_model(bg, card, "cpu"), SEED),
+                    best=True)
+    ckpt.save_model(wd, seeded_init_(build_model(fg_cfg, None, "cpu"), SEED + 1),
+                    best=True)
+    cfg = dict(fg_cfg, working_dir=wd, seed=SEED, fused={
+        "bg_config": dump("bg.yaml", bg), "bg_dir": bg_dir,
+        "pc_config": dump("pc.yaml", pc), "height": height, "width": width})
+    return cfg, store
+
+
+def run_cli(cfg, store, platform=None, export_name=None):
+    """forecast_fused.run on ``cfg`` (on ``platform``, cuda by default);
+    a format whose package is missing here is read from the fixture's
+    store."""
+    cfg = dict(cfg, platform=platform, export_name=export_name)
+    have = optional_packages()
+    with synthetic.readers_from_store(store, tables=not have["pandas"],
+                                      arrays=not have["h5py"]):
+        return forecast_fused.run(Config(cfg))["val"]
+
+
+def cli_outputs(report):
+    export = os.path.basename(report["result_dir"])
+    with open(os.path.join(report["result_dir"], f"{export}.json")) as f:
+        anns = json.load(f)["annotations"]
+    seg_dir = os.path.join(report["result_dir"], export)
+    return {a["image_id"]: decode_panoptic_png(load_png(os.path.join(
+        seg_dir, a["file_name"]))) for a in anns}, anns
+
+
+def step_panoptics(cfg, store, dev):
+    """{frame name: labelId panoptic map} of every forecast frame, from
+    ``step(...)`` on the frame's inputs, outside the CLI's loop."""
+    have = optional_packages()
+    with synthetic.readers_from_store(store, tables=not have["pandas"],
+                                      arrays=not have["h5py"]):
+        cfg, task_data, fg_model = setup(Config(cfg), test=True)
+        fg_model = restore_params(cfg, fg_model)
+        bg_model = forecast_fused._build_bg(cfg["fused"], dev)
+        pc_ds, pc_idx = forecast_fused._pc_index(cfg["fused"], "val")
+        loader = task_data.loader("val", cfg, test=True)
+    step = build_forecast_step(bg_model, fg_model, height=cfg["fused"]["height"],
+                               width=cfg["fused"]["width"], out_t=OUT_T, device=dev)
+    lut = id_to_train_id_lut()
+    out = {}
+    for batch in loader:
+        meta = batch["meta"]
+        for i in range(len(meta["city"])):
+            name = (f"{meta['city'][i]}_{meta['seq'][i]}_"
+                    f"{int(meta['target_frame'][i]):06d}")
+            pc_in = forecast_fused._pc_inputs(pc_ds, pc_idx[name], lut)
+            pan = step(pc_in, forecast_fused._fg_inputs(batch, i))["panoptic"][0]
+            out[name] = relabel_panoptic_trainid_to_labelid(
+                pan.cpu().numpy().astype(np.int64))
+    return out
+
+
+def png_decode_ms(height, width):
+    """Host ms of one decode_png at height x width: a label map and a
+    16-bit disparity map, each with no row filter and with Paeth."""
+    rng = np.random.RandomState(SEED)
+    seg = synthetic.make_scene_sequence(1, height, width)[0][0].astype(np.uint8)
+    disp = (rng.rand(height, width) * 30000 + 1).astype(np.uint16)
+    ms = {}
+    for name, arr in (("labels8", seg), ("disparity16", disp)):
+        for filt, fname in ((png.FILTER_NONE, "none"), (png.FILTER_PAETH, "paeth")):
+            data = png.encode_png(arr, 1, filt)
+            times = []
+            for _ in range(3):
+                ts = time.perf_counter()
+                got = png.decode_png(data)
+                times.append((time.perf_counter() - ts) * 1e3)
+            if not np.array_equal(got, arr):
+                raise SystemExit(f"PNG codec: {name} {fname} does not round-trip")
+            ms[f"{name}_{fname}"] = sorted(times)[1]
+    return ms
+
+
+def cli_phase(dev):
+    """Phase 12: the serving CLI at full width on the card, with the
+    launch counts set to 0 just before it and read just after; its PNGs
+    against the step on the same inputs, its json, and a 256x512 run on
+    the card against the same on the CPU."""
+    have = optional_packages()
+    from_memory = [fmt for fmt, pkg in (("tables", "pandas"), ("h5", "h5py"))
+                   if not have[pkg]]
+    print(f"[cli] readers: {', '.join(from_memory) or 'nothing'} from the "
+          f"fixture's memory (package missing), the rest from files")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        ts = time.perf_counter()
+        cfg, store = cli_fixture(os.path.join(root, "full"), H, W, CLI_SCENES)
+        fixture_s = time.perf_counter() - ts
+        reset_counts()
+        report = run_cli(cfg, store)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        frames = report["frames"]
+        print(f"[cli] {H}x{W}: {frames} frames, launches {launches}")
+        if frames != CLI_SCENES or report["skipped"]:
+            raise SystemExit(f"the CLI forecast {frames} frames, skipped "
+                             f"{report['skipped']}")
+        if (launches["place_min_fold"] != frames
+                or launches["onehot_stem_conv"] != frames
+                or launches["place_min"] != 0):
+            raise SystemExit(f"the CLI's launches are not one K1 fold and one "
+                             f"K2 per frame: {launches}")
+        maps, anns = cli_outputs(report)
+        names = [f"{synthetic.CITY}_{s:06d}_000019" for s in range(CLI_SCENES + 1)]
+        if [a["image_id"] for a in anns] != names:
+            raise SystemExit(f"the CLI's json lists {[a['image_id'] for a in anns]}")
+        backfill = maps[names[-1]]
+        if backfill.shape != (H, W) or (backfill >= 1000).any():
+            raise SystemExit("the backfilled frame is not its stuff canvas")
+        want = step_panoptics(cfg, store, dev)
+        for name, pan in want.items():
+            if not np.array_equal(maps[name], pan):
+                raise SystemExit(f"the CLI's PNG of {name} differs from the step's "
+                                 f"map on {int((maps[name] != pan).sum())} pixels")
+        things = sum(int((m >= 1000).sum()) for m in maps.values())
+        print(f"[cli] {frames} PNGs equal the step's maps on the card; json lists "
+              f"{len(anns)} frames ({len(anns) - frames} backfilled); "
+              f"{things} pixels in instances")
+
+        ms = report["ms"]
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        readings = {"frames": frames, "seconds": report["seconds"],
+                    "frames_per_s": frames / report["seconds"],
+                    "median_ms": med, "ms": ms, "fixture_s": fixture_s}
+        print("[cli] readings " + json.dumps(readings))
+
+        small, small_store = cli_fixture(os.path.join(root, "small"), H_SMALL,
+                                         W_SMALL, 2)
+        outs = {}
+        for platform in ("cuda", "cpu"):
+            rep = run_cli(small, small_store, platform, f"fused_{platform}")
+            outs[platform] = cli_outputs(rep)
+        worst = 0.0
+        for name, pan in outs["cuda"][0].items():
+            ref = outs["cpu"][0][name]
+            if set(np.unique(pan)) != set(np.unique(ref)):
+                raise SystemExit(f"CLI GPU and CPU ids differ on {name}")
+            worst = max(worst, float((pan != ref).mean()))
+        print(f"[cli] {H_SMALL}x{W_SMALL} GPU against CPU: ids equal on "
+              f"{len(outs['cuda'][0])} frames, worst panoptic mismatch {worst:.3e}")
+        if not worst < 1e-3:
+            raise SystemExit("the CLI's GPU and CPU maps differ beyond 1e-3")
+    readings["png_decode_ms"] = png_decode_ms(H, W)
+    print("[png] decode ms at 1024x2048: " + json.dumps(readings["png_decode_ms"]))
+    return launches, readings
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -693,6 +937,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     t0 = time.perf_counter()
+    print("[packages] importable here: " + json.dumps(optional_packages()))
 
     # ---- 1. build -----------------------------------------------------------
     secs = build.build(["placement", "stem", "minwin", "strided_load"],
@@ -891,6 +1136,9 @@ def main() -> int:
         if k.startswith(("k3", "k4")) or k in ("k1_device", "k2_device"):
             print(f"[time] {k} {v:.4f} ms")
 
+    # ---- 12. the serving CLI, counted ------------------------------------------
+    cli_launches, cli_readings = cli_phase(dev)
+
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
     fold_bound, fold_by = bound_ms(4 * n * 2 + 4 * T_IN * H * W, n_targets)
@@ -910,6 +1158,7 @@ def main() -> int:
          "layer_ms": times["layer"], "layer_device_ms": times["layer_device"],
          "layer_earlier_ms": times["layer_earlier"],
          "layer_earlier_device_ms": times["layer_earlier_device"],
+         "cli_launches": cli_launches["place_min_fold"],
          "note": "ms: the kernel (an entry's two targets of a row on two "
                  "lanes of one atomic instruction); earlier_ms: place_min + "
                  "fold_corners, the forecast path before; layer adds the "
@@ -931,6 +1180,7 @@ def main() -> int:
          "ms": times["k2"], "plain_ms": times["k2_plain"],
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": times["k2_lib"],
          "device_ms": times["k2_device"], "earlier_ms": None,
+         "cli_launches": cli_launches["onehot_stem_conv"],
          "note": "earlier_ms: the previous kernel is no longer in the tree; "
                  "its time is in PERF.md"},
     ]
@@ -971,7 +1221,9 @@ def main() -> int:
                         "the tree; its time is in PERF.md")})
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "cli": {
+        k: cli_readings[k] for k in ("frames", "frames_per_s", "median_ms",
+                                     "png_decode_ms")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,66 @@
+"""Model checkpoints in the port's own format.
+
+Counterpart of ``panoptic_forecasting_tpu/core/checkpoint.py`` (reference
+train.py:139-141, 275-289): per run ``working_dir/best_model`` (val-best)
+and ``working_dir/model_checkpoint`` (latest), the JAX package's names.
+Each is one file, ``torch.save`` of the module's ``state_dict`` (CPU
+tensors); Orbax directories of the JAX package are not read (carry JAX
+weights across with ``models/convert.py``).
+
+Normalisation statistics (top-level ``*_mean``/``*_std`` buffers, such as
+bg ``depth_mean`` or fg ``traj_std``) are saved but not restored: the JAX
+package keeps them out of its checkpoints and takes them from the data
+card, so a restored module keeps the statistics it was built with.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Mapping
+
+import torch
+
+BEST = "best_model"
+LATEST = "model_checkpoint"
+
+
+def is_stat_key(name: str) -> bool:
+    """A module's own normalisation statistic (not a BatchNorm buffer)."""
+    return "." not in name and name.endswith(("_mean", "_std"))
+
+
+def load_weights(module: torch.nn.Module, state: Mapping[str, torch.Tensor]
+                 ) -> torch.nn.Module:
+    """Load every entry of ``state`` but the statistics into ``module``;
+    any other missing or unexpected key raises."""
+    weights = {k: v for k, v in state.items() if not is_stat_key(k)}
+    missing, unexpected = module.load_state_dict(weights, strict=False)
+    missing = [k for k in missing if not is_stat_key(k)]
+    if missing or unexpected:
+        raise KeyError(f"checkpoint does not fit the module: missing "
+                       f"{missing}, unexpected {unexpected}")
+    return module
+
+
+def save_model(working_dir: str, module: torch.nn.Module,
+               best: bool = False) -> str:
+    """Write ``module``'s state_dict to ``working_dir/{best_model,
+    model_checkpoint}`` (atomic replace)."""
+    os.makedirs(working_dir, exist_ok=True)
+    path = os.path.join(working_dir, BEST if best else LATEST)
+    state = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    tmp = path + ".tmp_new"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_model(path_or_dir: str, module: torch.nn.Module,
+               best: bool = False) -> torch.nn.Module:
+    """Restore ``module`` from an explicit checkpoint file or from a
+    working dir's ``best_model`` (``best``) or ``model_checkpoint``."""
+    path = path_or_dir
+    if os.path.isdir(path_or_dir):
+        path = os.path.join(path_or_dir, BEST if best else LATEST)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return load_weights(module, state)

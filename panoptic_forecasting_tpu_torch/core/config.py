@@ -1,0 +1,163 @@
+"""Config system: YAML trees + CLI with dotted overrides.
+
+Counterpart of ``panoptic_forecasting_tpu/core/config.py`` (reference
+``utils/config.py``: ``load_config`` :34, ``merge_config`` :81-93,
+``convert_val`` :12-32), with the same precedence (low -> high): saved
+run config < ``--config_file`` YAML < first-class CLI flags < dotted
+``--set a.b.c value`` overrides; typed coercion of string overrides,
+including ``[a,b]`` lists. PyYAML is imported only where a YAML file is
+read or written.
+
+``--platform`` picks the device of the CLIs (``cli/common.py``): ``cpu``
+runs on the CPU, anything else on ``cuda``. The JAX package's
+multi-process flags (``--distributed`` and its coordinator) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Any, Dict, Optional, Sequence
+
+
+def coerce_value(val: str) -> Any:
+    """Coerce a CLI string into bool/int/float/None/list, else keep str.
+
+    Mirrors the coercion surface of the reference's ``convert_val``
+    (utils/config.py:12-32): ``[a,b,c]`` becomes a list with element-wise
+    coercion; bare scalars try bool, None, int, float in that order.
+    """
+    if not isinstance(val, str):
+        return val
+    s = val.strip()
+    if s.startswith("[") and s.endswith("]"):
+        inner = s[1:-1].strip()
+        if not inner:
+            return []
+        return [coerce_value(tok) for tok in inner.split(",")]
+    low = s.lower()
+    if low == "true":
+        return True
+    if low == "false":
+        return False
+    if low in ("none", "null"):
+        return None
+    try:
+        return int(s)
+    except ValueError:
+        pass
+    try:
+        return float(s)
+    except ValueError:
+        pass
+    return s
+
+
+def merge_config(base: Dict, override: Dict) -> Dict:
+    """Recursive dict merge; ``override`` wins (reference config.py:81-93)."""
+    out = dict(base)
+    for k, v in override.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = merge_config(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def apply_dotted_override(cfg: Dict, dotted: str, value: Any) -> None:
+    """Set ``cfg['a']['b']['c'] = value`` for dotted path ``a.b.c`` in place."""
+    keys = dotted.split(".")
+    node = cfg
+    for k in keys[:-1]:
+        nxt = node.get(k)
+        if not isinstance(nxt, dict):
+            nxt = {}
+            node[k] = nxt
+        node = nxt
+    node[keys[-1]] = value
+
+
+class Config(dict):
+    """A nested mapping with attribute access and safe ``get`` chains.
+
+    ``cfg.model.rnn_hidden`` works when the keys exist; ``cfg.get('model', {})``
+    always works.
+    """
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            v = self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+        if isinstance(v, dict) and not isinstance(v, Config):
+            return Config(v)
+        return v
+
+
+def _read_yaml(path: str) -> Dict:
+    import yaml
+
+    with open(path) as f:
+        out = yaml.safe_load(f)
+    return out or {}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="panoptic_forecasting_tpu_torch")
+    p.add_argument("--working_dir", required=True)
+    p.add_argument("--config_file", default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--load_model", default=None)
+    p.add_argument(
+        "--load_torch_model", default=None,
+        help="reference *.pt checkpoint, loaded straight into the port's "
+             "modules (they keep the reference's parameter names)",
+    )
+    p.add_argument("--continue_training", action="store_true")
+    p.add_argument("--load_best_model", action="store_true")
+    p.add_argument("--platform", default=None,
+                   help="device: cpu, else cuda (the default)")
+    p.add_argument(
+        "--set",
+        dest="overrides",
+        nargs=2,
+        action="append",
+        metavar=("PATH", "VALUE"),
+        default=[],
+        help="dotted config override, e.g. --set training.lr 1e-3",
+    )
+    return p
+
+
+def load_config(argv: Optional[Sequence[str]] = None) -> Config:
+    """Build the run config from CLI + YAML with reference-parity precedence."""
+    args = build_arg_parser().parse_args(argv)
+    cfg: Dict = {}
+
+    saved = os.path.join(args.working_dir, "config.yaml")
+    if (args.continue_training or args.load_best_model) and os.path.exists(saved):
+        cfg = merge_config(cfg, _read_yaml(saved))
+    if args.load_model:
+        near = os.path.join(os.path.dirname(args.load_model), "config.yaml")
+        if os.path.exists(near):
+            cfg = merge_config(cfg, _read_yaml(near))
+    if args.config_file:
+        cfg = merge_config(cfg, _read_yaml(args.config_file))
+
+    cfg["working_dir"] = args.working_dir
+    if args.seed is not None:
+        cfg["seed"] = args.seed
+    cfg.setdefault("seed", 0)
+    if args.load_model:
+        cfg["load_model"] = args.load_model
+    if args.load_torch_model:
+        cfg["load_torch_model"] = args.load_torch_model
+    cfg["continue_training"] = bool(args.continue_training)
+    cfg["load_best_model"] = bool(args.load_best_model)
+    if args.platform:
+        cfg["platform"] = args.platform
+
+    for dotted, raw in args.overrides:
+        apply_dotted_override(cfg, dotted, coerce_value(raw))
+    return Config(cfg)

@@ -1,0 +1,340 @@
+"""Synthetic micro-Cityscapes fixtures for tests and chip runs.
+
+Counterpart of ``panoptic_forecasting_tpu/data/synthetic.py``: the same
+generators (a toy street scene sequence, moving instance boxes with
+low-rank ROI features), writing only what the port's readers open:
+
+* ``write_cityscapes_fixture``: camera, timestamp and vehicle files of
+  all 30 frames of each snippet; disparity and ``pred_mask`` seg PNGs of
+  the three input frames of target 19 (``gap_len``); the annotated
+  frame's ``gtFine`` labelIds PNG; ``{split}_3d_info.pkl``;
+* ``write_fg_fixture``: the scene tables, depth tables, ROI feature h5
+  and ``{split}_3d_info.pkl`` of the fg-scene dataset;
+* ``write_odom_predictions``: a predicted-odometry h5 (speed, yaw rate
+  per future step) keyed ``city/seq/frame/start``.
+
+PNGs go through the port's codec. Tables are pickled pandas frames and
+feature/odometry files HDF5; each writer also returns them in memory
+(``{path: rows}`` and ``{path: {key: array}}``), and writes a format only
+where its package (pandas, h5py) imports. On a machine without one of
+them, ``readers_from_store`` serves that format's reader function
+(``io.read_table``, ``io.open_h5``) from the returned store, so the
+datasets and everything after them run unchanged.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+
+from . import io
+from .cityscapes import train_id_to_id_lut
+from .io import PNG_IDS, save_png
+
+CITY = "synthcity"
+
+
+def make_camera_json(height: int = 128, width: int = 256) -> Dict:
+    """A Cityscapes-style camera scaled to a small image."""
+    s = width / 2048.0
+    return {
+        "intrinsic": {
+            "fx": 2262.52 * s,
+            "fy": 2265.30 * s,
+            "u0": 1096.98 * s,
+            "v0": 513.137 * s,
+        },
+        "extrinsic": {
+            "baseline": 0.209313,
+            "pitch": 0.038,
+            "roll": 0.0,
+            "yaw": -0.0195,
+            "x": 1.7,
+            "y": 0.1,
+            "z": 1.22,
+        },
+    }
+
+
+def make_scene_sequence(
+    n_frames: int,
+    height: int = 64,
+    width: int = 128,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(T, H, W) int32 trainId maps + (T, H, W) float32 depth, a toy street:
+    road at the bottom, buildings left/right, sky top, a moving car blob."""
+    segs = np.zeros((n_frames, height, width), np.int32)
+    depths = np.zeros((n_frames, height, width), np.float32)
+    horizon = height // 2
+    for t in range(n_frames):
+        seg = np.full((height, width), 10, np.int32)  # sky
+        dep = np.full((height, width), 200.0, np.float32)
+        # road: lower half, depth grows toward horizon
+        rows = np.arange(horizon, height)
+        seg[horizon:, :] = 0
+        dep[horizon:, :] = (1.5 * height / (rows - horizon + 2))[:, None]
+        # buildings: left/right vertical bands above horizon
+        bw = width // 6
+        seg[:horizon, :bw] = 2
+        dep[:horizon, :bw] = 12.0
+        seg[:horizon, -bw:] = 2
+        dep[:horizon, -bw:] = 15.0
+        # a car (trainId 13) sliding right as frames advance
+        cw, ch = width // 8, height // 8
+        cx = width // 3 + t * 2
+        cy = horizon + height // 8
+        seg[cy : cy + ch, cx : cx + cw] = 13
+        dep[cy : cy + ch, cx : cx + cw] = 9.0 - 0.2 * t
+        segs[t] = seg
+        depths[t] = dep
+    return segs, depths
+
+
+def _store_table(store: Dict[str, Any], path: str, rows: List[Dict]) -> None:
+    store["tables"][path] = rows
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    try:
+        import pandas as pd
+    except ImportError:
+        return
+    pd.DataFrame(rows).to_pickle(path)
+
+
+def _store_arrays(store: Dict[str, Any], path: str,
+                  arrays: Dict[str, np.ndarray]) -> None:
+    store["arrays"][path] = arrays
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    try:
+        import h5py
+    except ImportError:
+        return
+    with h5py.File(path, "w") as h5:
+        for key, arr in arrays.items():
+            h5.create_dataset(key, data=arr)
+
+
+def new_store() -> Dict[str, Any]:
+    """The in-memory record of what the writers write."""
+    return {"tables": {}, "arrays": {}}
+
+
+def _dump(path: str, text: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def write_cityscapes_fixture(
+    root: str,
+    split: str = "val",
+    n_snippets: int = 2,
+    height: int = 64,
+    width: int = 128,
+    seed: int = 0,
+    gap_len: int = 9,
+    store: Dict[str, Any] = None,
+) -> Dict[str, Any]:
+    """A miniature Cityscapes tree + ``{split}_3d_info.pkl``, with the
+    JAX package's fixture content; PNGs only of the frames
+    ``PCTransformDataset`` opens at ``gap_len`` (and the gt frame).
+    Returns ``store`` (tables and arrays written)."""
+    store = store if store is not None else new_store()
+    rng = np.random.RandomState(seed)
+    cam = make_camera_json(height, width)
+    fx = cam["intrinsic"]["fx"]
+    baseline = cam["extrinsic"]["baseline"]
+    lut = train_id_to_id_lut()
+    png_frames = set((np.array([0, 3, 6]) + 19 - (6 + gap_len)).tolist())
+    rows = []
+    for snip in range(n_snippets):
+        seq = f"{snip:06d}"
+        frame = 19
+        segs, depths = make_scene_sequence(30, height, width, seed=seed + snip)
+        speed = 8.0 + rng.rand()
+        yaw = 0.02 * rng.randn()
+        odom = np.zeros((30, 5), np.float32)
+        odom[:, 0] = speed
+        odom[:, 1] = yaw
+        rows.append({"city": CITY, "seq": seq, "frame": frame, "odometry": odom})
+        for ind in range(30):
+            name = f"{CITY}_{seq}_{frame - 19 + ind:06d}"
+
+            def path(kind, suffix, prefix=""):
+                return os.path.join(root, kind, split, CITY,
+                                    f"{prefix}{name}_{suffix}")
+
+            _dump(path("camera", "camera.json"), json.dumps(cam))
+            _dump(path("timestamp_sequence", "timestamp.txt"),
+                  str(int(ind * 0.0589 * 1e9)))
+            _dump(path("vehicle_sequence", "vehicle.json"),
+                  json.dumps({"speed": float(speed), "yawRate": float(yaw)}))
+            if ind not in png_frames:
+                continue
+            # disparity: official encoding p = d*256 + 1 (0 = invalid)
+            disp = baseline * fx / np.maximum(depths[ind], 0.5)
+            png = (disp * 256 + 1).astype(np.uint16)
+            png[depths[ind] <= 0] = 0
+            save_png(path("disparity_sequence", "disparity.png"), png, **PNG_IDS)
+            # predicted-seg input (labelId space)
+            save_png(path("seg", "leftImg8bit.png", "pred_mask_"),
+                     lut[segs[ind]], **PNG_IDS)
+        name = f"{CITY}_{seq}_{frame:06d}"
+        save_png(os.path.join(root, "gtFine", split, CITY,
+                              f"{name}_gtFine_labelIds.png"),
+                 lut[segs[19]], **PNG_IDS)
+    _store_table(store, os.path.join(root, f"{split}_3d_info.pkl"), rows)
+    return store
+
+
+def write_fg_fixture(
+    root: str,
+    splits=("train", "val"),
+    n_scenes: int = 3,
+    max_instances: int = 4,
+    seed: int = 0,
+    feat_channels: int = 256,
+    feat_hw: int = 14,
+    store: Dict[str, Any] = None,
+) -> Dict[str, Any]:
+    """FG-scene artifacts (seq meta, depth info, feats h5, 3d info) with
+    the JAX package's fixture content: moving boxes with smooth
+    trajectories, low-rank random features. Returns ``store``."""
+    store = store if store is not None else new_store()
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for split in splits:
+        scene_rows, scene_depth_rows, d3_rows = [], [], []
+        feats: Dict[str, np.ndarray] = {}
+        for s in range(n_scenes):
+            seq = f"{s:06d}"
+            frame = 19
+            n_inst = rng.randint(2, max_instances + 1)
+            boxes_all, masks, finds, depths, classes = [], [], [], [], []
+            all_feats = []
+            feat_counter = 0
+            for k in range(n_inst):
+                cls = int(rng.choice([11, 13, 13, 14]))  # person/car/truck
+                cx = rng.rand() * 1500 + 200
+                cy = rng.rand() * 300 + 400
+                vx = rng.randn() * 15
+                vy = rng.randn() * 3
+                w = rng.rand() * 150 + 60
+                h = rng.rand() * 120 + 60
+                boxes = np.zeros((30, 4), np.float32)
+                mask = np.zeros(30, bool)
+                fi = np.full(30, -1, np.int64)
+                depth = np.full(30, -1.0, np.float32)
+                d0 = rng.rand() * 30 + 8
+                for t in range(30):
+                    x = cx + vx * t
+                    y = cy + vy * t
+                    boxes[t] = [x - w / 2, y - h / 2, x + w / 2, y + h / 2]
+                    visible = 0 < x < 2048 and rng.rand() > 0.1
+                    mask[t] = visible
+                    if visible:
+                        depth[t] = max(d0 - 0.2 * t, 1.0)
+                        fi[t] = feat_counter
+                        feat_counter += 1
+                # low-rank features per instance, drifting over time
+                u = rng.randn(feat_hw, 1, 8) * 0.5
+                v = rng.randn(1, feat_hw, 8) * 0.5
+                base_feat = np.moveaxis(np.einsum("hxc,xwc->hwc", u, v), -1, 0)
+                for t in range(30):
+                    if mask[t]:
+                        f = np.zeros((feat_channels, feat_hw, feat_hw), np.float32)
+                        f[:8] = base_feat * (1 + 0.02 * t)
+                        all_feats.append(f)
+                boxes_all.append(boxes)
+                masks.append(mask)
+                finds.append(fi)
+                depths.append(depth)
+                classes.append(cls)
+            feats[f"{CITY}/{seq}/{frame}"] = (
+                np.stack(all_feats) if all_feats else
+                np.zeros((1, feat_channels, feat_hw, feat_hw), np.float32))
+            scene_rows.append({
+                "city": CITY, "seq": seq, "frame": frame,
+                "track_id": 1000 + np.arange(n_inst),
+                "class": np.asarray(classes),
+                "bboxes": np.stack(boxes_all),
+                "feat_mask": np.stack(masks),
+                "feat_ind": np.stack(finds),
+            })
+            scene_depth_rows.append({"depth": np.stack(depths)})
+            odom = np.zeros((30, 5), np.float32)
+            odom[:, 0] = 8.0 + rng.rand()
+            odom[:, 1] = 0.01 * rng.randn()
+            odom[:, 2] = odom[:, 0] * 0.059
+            d3_rows.append({"city": CITY, "seq": seq, "frame": frame,
+                            "odometry": odom, "times": np.arange(30) * 0.0589})
+        _store_arrays(store, os.path.join(root, f"{split}_feats.h5"), feats)
+        _store_table(store, os.path.join(root, f"{split}_seq_meta.pkl"), scene_rows)
+        _store_table(store, os.path.join(root, f"{split}_depth_seq_info.pkl"),
+                     scene_depth_rows)
+        _store_table(store, os.path.join(root, f"{split}_3d_info.pkl"), d3_rows)
+    return store
+
+
+def write_odom_predictions(path: str, rows: List[Dict], starts=(10, 16),
+                           horizon: int = 9, seed: int = 0,
+                           store: Dict[str, Any] = None) -> Dict[str, Any]:
+    """A predicted-odometry h5: for each snippet row (city, seq, frame,
+    odometry (30, 5)) and each start index, (horizon, 2) float32 (speed,
+    yaw rate) — the row's odometry after ``start`` plus noise. Returns
+    ``store``."""
+    store = store if store is not None else new_store()
+    rng = np.random.RandomState(seed)
+    arrays = {}
+    for r in rows:
+        odom = np.asarray(r["odometry"], np.float32)
+        for start in starts:
+            steps = odom[start + 1 : start + 1 + horizon, :2]
+            steps = np.concatenate(
+                [steps, np.repeat(odom[-1:, :2], horizon - len(steps), 0)])
+            noise = rng.randn(horizon, 2) * np.array([0.2, 0.002])
+            arrays[f"{r['city']}/{r['seq']}/{int(r['frame'])}/{start}"] = (
+                steps + noise).astype(np.float32)
+    _store_arrays(store, path, arrays)
+    return store
+
+
+class ArrayFile(dict):
+    """An h5 file's datasets held in memory: ``{key: array}`` with the
+    reads ``io.LazyH5`` offers."""
+
+    def mmap_dataset(self, key):
+        return self[key]
+
+    def close(self) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def readers_from_store(store: Dict[str, Any], tables: bool = True,
+                       arrays: bool = True):
+    """Within the block, ``io.read_table`` (``tables``) and ``io.open_h5``
+    (``arrays``) answer the paths ``store`` holds from memory; other paths
+    still go to the files."""
+    saved = io.read_table, io.open_h5
+
+    def read_table(path):
+        rows = store["tables"].get(path)
+        return saved[0](path) if rows is None else rows
+
+    def open_h5(path):
+        data = store["arrays"].get(path)
+        return saved[1](path) if data is None else ArrayFile(data)
+
+    if tables:
+        io.read_table = read_table
+    if arrays:
+        io.open_h5 = open_h5
+    try:
+        yield store
+    finally:
+        io.read_table, io.open_h5 = saved

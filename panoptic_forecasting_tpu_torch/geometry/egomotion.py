@@ -3,11 +3,13 @@
 Counterpart of ``panoptic_forecasting_tpu/geometry/egomotion.py``
 (reference ``data_utils.get_vehicle_now_T_prev``, data_utils.py:117-165):
 planar constant-twist motion, composed in closed form (rigid inverse
-Rᵀ, −Rᵀt) with the straight-line branch selected elementwise.
+Rᵀ, −Rᵀt) with the straight-line branch selected elementwise; and the
+host-side numpy scalar twins the datasets build their transforms with.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Reference threshold for "driving straight" (~0.01 deg): data_utils.py:137.
@@ -49,3 +51,26 @@ def unicycle_now_T_prev(speed, yaw_rate, delta_t) -> torch.Tensor:
         torch.stack([zero, zero, zero, one], -1),
     ]
     return torch.stack(rows, -2)
+
+
+# Host-side (numpy, float64) scalar twins for the dataset code.
+
+
+def unicycle_pose_delta_np(speed: float, yaw_rate: float, dt: float):
+    """(dx, dy, dθ) of the vehicle over dt."""
+    if abs(yaw_rate) < _ANGLE_EPS:
+        return dt * speed, 0.0, 0.0
+    r = speed / yaw_rate
+    wt = yaw_rate * dt
+    return r * np.sin(wt), r * (1 - np.cos(wt)), wt
+
+
+def unicycle_now_T_prev_np(speed: float, yaw_rate: float, dt: float) -> np.ndarray:
+    """4x4 now_T_prev (float64) of one step."""
+    x, y, th = unicycle_pose_delta_np(speed, yaw_rate, dt)
+    c, s = np.cos(th), np.sin(th)
+    T = np.eye(4)
+    T[:2, :2] = [[c, s], [-s, c]]
+    T[0, 3] = -(c * x + s * y)
+    T[1, 3] = -(-s * x + c * y)
+    return T
