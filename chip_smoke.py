@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths once each: the serving CLI
-(``python -m panoptic_forecasting_tpu_torch.cli.forecast_fused``, phase
-12) and the single-call panoptic
+Drives the port's main paths once each: the chain export_odom ->
+forecast_fused -> evaluate_panoptic (``python -m
+panoptic_forecasting_tpu_torch.cli.{export_odom,forecast_fused,
+evaluate_panoptic}``, phases 12-13) and the single-call panoptic
 forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
@@ -65,19 +66,39 @@ Phases (any failure exits non-zero):
  12. the serving CLI (``cli/forecast_fused.py::run``) on a 1024x2048
      fixture from the port's data/synthetic.py (7 Cityscapes snippets, 6
      fg scenes of 8 instance slots with 256x14x14 features, predicted
-     odometry, bg canvases) with seeded weights of the two configs above
-     in the port's checkpoints, launch counters set to 0 just before and
-     read just after: place_min_fold and onehot_stem_conv once per frame,
-     the generic place_min never; each PNG equal to the step's map on
-     the same frame's inputs, the json listing every frame and the
-     backfilled gt frame; per-frame host times of the pc fetch, the fg
-     batch, the step and the PNG write, and frames per second; then a
-     256x512 run of the CLI on the card against the same on the CPU
-     (segment ids equal, < 1e-3 of pixels differing) and the PNG decode
-     time at 1024x2048. A reader format whose package (pandas, h5py) is
-     missing here is served from the fixture's in-memory store
-     (``data/synthetic.py::readers_from_store``); the script prints which
-     of PyYAML, Pillow, pandas and h5py import.
+     odometry, bg canvases) with seeded weights of the two configs above,
+     bg in the port's checkpoint, fg with box statistics of the frame as
+     a reference-format ``.pt`` (``--load_torch_model``), launch counters
+     set to 0 just before and read just after: place_min_fold and
+     onehot_stem_conv once per frame, the generic place_min never; each
+     PNG equal to the step's map on the same frame's inputs, the json
+     listing every frame and the backfilled gt frame, instances painted;
+     per-frame host times of the pc fetch, the fg batch, the step and the
+     PNG write, and frames per second; then a 256x512 run of the CLI on
+     the card against the same on the CPU (segment ids equal, < 1e-3 of
+     pixels differing, instances painted) and the PNG decode time at
+     1024x2048. A reader format whose package (pandas, h5py) is missing
+     here is served from the fixture's in-memory store, which also takes
+     the h5 writes (``data/synthetic.py::readers_from_store``); the
+     script prints which of PyYAML, Pillow, pandas and h5py import;
+ 13. serve and score on the phase 12 fixture: ``export_odom`` on the
+     card with configs/odom/odom_val.yaml's model (seeded, in the port's
+     checkpoint) over the Cityscapes table (``odometry_val.h5``) and the
+     fg table (``predicted_odometry_val.h5``), read back through
+     ``io.open_h5``: one forecast for every window of the odometry
+     dataset, the readers' start 16 among them, equal to the CPU export
+     to 1e-5; the CLI on those files, launches counted as in phase 12,
+     every forecast its pc and fg readers look up read from the exports
+     (recorded at ``io.open_h5``) and equal to the exported array, none
+     from the fixture's own odometry files, its PNGs equal to the step's
+     maps on the same inputs and unlike phase 12's; the fixture's gtFine
+     converted (``convert_gt_split``) and scored with
+     ``evaluate_panoptic`` against itself (PQ 1 on every valid class)
+     and against the CLI's maps; the 256x512 GPU and CPU exports of
+     phase 12 scored (equal PQ where the maps are equal, else < 1e-3
+     apart); export ms per batch over a val-sized table (500 snippets:
+     median and range of 3 passes), GT conversion s, PQ s per frame and
+     PQ All/Things/Stuff printed with the card's name and power limit.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (both K1 entry points, K2, K3 and each K4 probe) and the CLI's
@@ -87,8 +108,10 @@ CUDA is unavailable.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -100,17 +123,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from panoptic_forecasting_tpu_torch.cli import forecast_fused
+from panoptic_forecasting_tpu_torch.cli import evaluate_panoptic, export_odom, forecast_fused
 from panoptic_forecasting_tpu_torch.cli.common import restore_params, setup
 from panoptic_forecasting_tpu_torch.core import build_dataset, build_model
 from panoptic_forecasting_tpu_torch.core import checkpoint as ckpt
-from panoptic_forecasting_tpu_torch.core.config import Config
-from panoptic_forecasting_tpu_torch.data import png, synthetic
+from panoptic_forecasting_tpu_torch.core.config import Config, load_config
+from panoptic_forecasting_tpu_torch.data import io as data_io, png, synthetic
 from panoptic_forecasting_tpu_torch.data.cityscapes import id_to_train_id_lut
 from panoptic_forecasting_tpu_torch.data.io import load_png, save_png
 from panoptic_forecasting_tpu_torch.eval import build_forecast_step
 from panoptic_forecasting_tpu_torch.eval.panoptic_protocol import (
-    relabel_panoptic_trainid_to_labelid,
+    convert_gt_split, relabel_panoptic_trainid_to_labelid,
 )
 from panoptic_forecasting_tpu_torch.eval.pq import decode_panoptic_png
 from panoptic_forecasting_tpu_torch.geometry import rdf_T_flu, unicycle_now_T_prev
@@ -129,7 +152,7 @@ from panoptic_forecasting_tpu_torch.kernels.stem import (
 from panoptic_forecasting_tpu_torch.kernels.zbuffer import (
     decode_canvas, splat_stream, zbuffer_splat,
 )
-from panoptic_forecasting_tpu_torch.models import BGModel, FGModel, seeded_init_
+from panoptic_forecasting_tpu_torch.models import BGModel, FGModel, OdomModel, seeded_init_
 from panoptic_forecasting_tpu_torch.models.pc_transform import (
     PCTransformModel, pc_transform_predict, reproject,
 )
@@ -727,23 +750,35 @@ def optional_packages():
     return {m: importlib.util.find_spec(m) is not None for m in OPTIONAL}
 
 
+def read_yaml(path):
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def conf(*parts):
+    """A config of the repo's configs/."""
+    return read_yaml(os.path.join(REPO, "configs", *parts))
+
+
+def dump(path, cfg):
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
 def cli_fixture(root, height, width, n_scenes):
     """The serving fixture under ``root`` (port's data/synthetic.py,
     short-term: pc gap 3, fg output_ind 0, predicted odometry, bg
-    canvases), seeded weights of configs/bg/bg_val_short.yaml and
-    configs/fg/fg_val_short.yaml in the port's checkpoint format, and the
-    CLI config. Returns (cfg, store)."""
-    import yaml
-
-    def conf(*parts):
-        with open(os.path.join(REPO, "configs", *parts)) as f:
-            return yaml.safe_load(f)
-
-    def dump(name, cfg):
-        path = os.path.join(root, name)
-        with open(path, "w") as f:
-            yaml.safe_dump(cfg, f)
-        return path
+    canvases), seeded weights of configs/bg/bg_val_short.yaml in the
+    port's checkpoint format and of configs/fg/fg_val_short.yaml as a
+    reference-format ``.pt`` (the port's FGModel keeps the reference
+    names) with box statistics of a ``width``-wide frame, which the CLI
+    loads with ``--load_torch_model``, and the CLI config. Returns (cfg,
+    store)."""
 
     cs, fg, odom, canvases = (os.path.join(root, d)
                               for d in ("cs", "fg", "odom", "bg_export"))
@@ -776,22 +811,25 @@ def cli_fixture(root, height, width, n_scenes):
     card = build_dataset(bg, test=True).card
     ckpt.save_model(bg_dir, seeded_init_(build_model(bg, card, "cpu"), SEED),
                     best=True)
-    ckpt.save_model(wd, seeded_init_(build_model(fg_cfg, None, "cpu"), SEED + 1),
-                    best=True)
-    cfg = dict(fg_cfg, working_dir=wd, seed=SEED, fused={
-        "bg_config": dump("bg.yaml", bg), "bg_dir": bg_dir,
-        "pc_config": dump("pc.yaml", pc), "height": height, "width": width})
+    fg_pt = os.path.join(root, "fg_reference.pt")
+    torch.save(seeded_init_(FGModel(fg_cfg, stats=fg_stats(width), device="cpu"),
+                            SEED + 1).state_dict(), fg_pt)
+    cfg = dict(fg_cfg, working_dir=wd, seed=SEED, load_torch_model=fg_pt, fused={
+        "bg_config": dump(os.path.join(root, "bg.yaml"), bg), "bg_dir": bg_dir,
+        "pc_config": dump(os.path.join(root, "pc.yaml"), pc),
+        "height": height, "width": width})
     return cfg, store
 
 
-def run_cli(cfg, store, platform=None, export_name=None):
+def run_cli(cfg, store, platform=None, export_name=None, reads=None):
     """forecast_fused.run on ``cfg`` (on ``platform``, cuda by default);
     a format whose package is missing here is read from the fixture's
-    store."""
+    store. ``reads`` ({path: {}}) takes each key the readers look up in
+    the h5 file at one of its paths (``h5_reads``)."""
     cfg = dict(cfg, platform=platform, export_name=export_name)
     have = optional_packages()
     with synthetic.readers_from_store(store, tables=not have["pandas"],
-                                      arrays=not have["h5py"]):
+                                      arrays=not have["h5py"]), h5_reads(reads or {}):
         return forecast_fused.run(Config(cfg))["val"]
 
 
@@ -852,78 +890,339 @@ def png_decode_ms(height, width):
     return ms
 
 
-def cli_phase(dev):
+def thing_pixels(maps):
+    return sum(int((m >= 1000).sum()) for m in maps.values())
+
+
+def cli_phase(dev, root):
     """Phase 12: the serving CLI at full width on the card, with the
     launch counts set to 0 just before it and read just after; its PNGs
-    against the step on the same inputs, its json, and a 256x512 run on
-    the card against the same on the CPU."""
+    against the step on the same inputs, its json, instances painted, and
+    a 256x512 run on the card against the same on the CPU. Returns the
+    launches, the readings and {size: (cfg, store, {platform: report})}
+    of the fixtures under ``root``."""
     have = optional_packages()
     from_memory = [fmt for fmt, pkg in (("tables", "pandas"), ("h5", "h5py"))
                    if not have[pkg]]
     print(f"[cli] readers: {', '.join(from_memory) or 'nothing'} from the "
           f"fixture's memory (package missing), the rest from files")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
-        ts = time.perf_counter()
-        cfg, store = cli_fixture(os.path.join(root, "full"), H, W, CLI_SCENES)
-        fixture_s = time.perf_counter() - ts
-        reset_counts()
-        report = run_cli(cfg, store)
-        torch.cuda.synchronize()
-        launches = read_counts()
-        frames = report["frames"]
-        print(f"[cli] {H}x{W}: {frames} frames, launches {launches}")
-        if frames != CLI_SCENES or report["skipped"]:
-            raise SystemExit(f"the CLI forecast {frames} frames, skipped "
-                             f"{report['skipped']}")
-        if (launches["place_min_fold"] != frames
-                or launches["onehot_stem_conv"] != frames
-                or launches["place_min"] != 0):
-            raise SystemExit(f"the CLI's launches are not one K1 fold and one "
-                             f"K2 per frame: {launches}")
-        maps, anns = cli_outputs(report)
-        names = [f"{synthetic.CITY}_{s:06d}_000019" for s in range(CLI_SCENES + 1)]
-        if [a["image_id"] for a in anns] != names:
-            raise SystemExit(f"the CLI's json lists {[a['image_id'] for a in anns]}")
-        backfill = maps[names[-1]]
-        if backfill.shape != (H, W) or (backfill >= 1000).any():
-            raise SystemExit("the backfilled frame is not its stuff canvas")
-        want = step_panoptics(cfg, store, dev)
-        for name, pan in want.items():
-            if not np.array_equal(maps[name], pan):
-                raise SystemExit(f"the CLI's PNG of {name} differs from the step's "
-                                 f"map on {int((maps[name] != pan).sum())} pixels")
-        things = sum(int((m >= 1000).sum()) for m in maps.values())
-        print(f"[cli] {frames} PNGs equal the step's maps on the card; json lists "
-              f"{len(anns)} frames ({len(anns) - frames} backfilled); "
-              f"{things} pixels in instances")
+    ts = time.perf_counter()
+    cfg, store = cli_fixture(os.path.join(root, "full"), H, W, CLI_SCENES)
+    fixture_s = time.perf_counter() - ts
+    reset_counts()
+    report = run_cli(cfg, store)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    frames = report["frames"]
+    print(f"[cli] {H}x{W}: {frames} frames, launches {launches}")
+    if frames != CLI_SCENES or report["skipped"]:
+        raise SystemExit(f"the CLI forecast {frames} frames, skipped "
+                         f"{report['skipped']}")
+    if (launches["place_min_fold"] != frames
+            or launches["onehot_stem_conv"] != frames
+            or launches["place_min"] != 0):
+        raise SystemExit(f"the CLI's launches are not one K1 fold and one "
+                         f"K2 per frame: {launches}")
+    maps, anns = cli_outputs(report)
+    names = [f"{synthetic.CITY}_{s:06d}_000019" for s in range(CLI_SCENES + 1)]
+    if [a["image_id"] for a in anns] != names:
+        raise SystemExit(f"the CLI's json lists {[a['image_id'] for a in anns]}")
+    backfill = maps[names[-1]]
+    if backfill.shape != (H, W) or (backfill >= 1000).any():
+        raise SystemExit("the backfilled frame is not its stuff canvas")
+    want = step_panoptics(cfg, store, dev)
+    for name, pan in want.items():
+        if not np.array_equal(maps[name], pan):
+            raise SystemExit(f"the CLI's PNG of {name} differs from the step's "
+                             f"map on {int((maps[name] != pan).sum())} pixels")
+    things = thing_pixels(maps)
+    print(f"[cli] {frames} PNGs equal the step's maps on the card; json lists "
+          f"{len(anns)} frames ({len(anns) - frames} backfilled); "
+          f"{things} pixels in instances")
+    if things <= 0:
+        raise SystemExit("the CLI painted no instance at full width")
 
-        ms = report["ms"]
-        med = {k: float(np.median(v)) for k, v in ms.items()}
-        readings = {"frames": frames, "seconds": report["seconds"],
-                    "frames_per_s": frames / report["seconds"],
-                    "median_ms": med, "ms": ms, "fixture_s": fixture_s}
-        print("[cli] readings " + json.dumps(readings))
+    ms = report["ms"]
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    readings = {"frames": frames, "seconds": report["seconds"],
+                "frames_per_s": frames / report["seconds"],
+                "median_ms": med, "ms": ms, "fixture_s": fixture_s,
+                "thing_pixels": things}
+    print("[cli] readings " + json.dumps(readings))
 
-        small, small_store = cli_fixture(os.path.join(root, "small"), H_SMALL,
-                                         W_SMALL, 2)
-        outs = {}
-        for platform in ("cuda", "cpu"):
-            rep = run_cli(small, small_store, platform, f"fused_{platform}")
-            outs[platform] = cli_outputs(rep)
-        worst = 0.0
-        for name, pan in outs["cuda"][0].items():
-            ref = outs["cpu"][0][name]
-            if set(np.unique(pan)) != set(np.unique(ref)):
-                raise SystemExit(f"CLI GPU and CPU ids differ on {name}")
-            worst = max(worst, float((pan != ref).mean()))
-        print(f"[cli] {H_SMALL}x{W_SMALL} GPU against CPU: ids equal on "
-              f"{len(outs['cuda'][0])} frames, worst panoptic mismatch {worst:.3e}")
-        if not worst < 1e-3:
-            raise SystemExit("the CLI's GPU and CPU maps differ beyond 1e-3")
+    small, small_store = cli_fixture(os.path.join(root, "small"), H_SMALL,
+                                     W_SMALL, 2)
+    reports, outs = {}, {}
+    for platform in ("cuda", "cpu"):
+        reports[platform] = run_cli(small, small_store, platform, f"fused_{platform}")
+        outs[platform] = cli_outputs(reports[platform])
+    worst = 0.0
+    for name, pan in outs["cuda"][0].items():
+        ref = outs["cpu"][0][name]
+        if set(np.unique(pan)) != set(np.unique(ref)):
+            raise SystemExit(f"CLI GPU and CPU ids differ on {name}")
+        worst = max(worst, float((pan != ref).mean()))
+    small_things = thing_pixels(outs["cuda"][0])
+    print(f"[cli] {H_SMALL}x{W_SMALL} GPU against CPU: ids equal on "
+          f"{len(outs['cuda'][0])} frames, worst panoptic mismatch {worst:.3e}, "
+          f"{small_things} pixels in instances")
+    if not worst < 1e-3:
+        raise SystemExit("the CLI's GPU and CPU maps differ beyond 1e-3")
+    if small_things <= 0:
+        raise SystemExit(f"the CLI painted no instance at {H_SMALL}x{W_SMALL}")
     readings["png_decode_ms"] = png_decode_ms(H, W)
     print("[png] decode ms at 1024x2048: " + json.dumps(readings["png_decode_ms"]))
-    return launches, readings
+    fixtures = {"full": (cfg, store, {"cuda": report}),
+                "small": (small, small_store, reports)}
+    return launches, readings, fixtures
 
+
+# ---- 13. serve and score ------------------------------------------------------
+
+TIMED_SNIPPETS = 500  # the Cityscapes val split's snippets
+
+
+def odom_argv(wd, data_dir, name, platform):
+    """export_odom's arguments: configs/odom/odom_val.yaml on ``data_dir``."""
+    return ["--working_dir", wd, "--config_file",
+            os.path.join(REPO, "configs", "odom", "odom_val.yaml"),
+            "--set", "data.data_dir", data_dir, "--set", "export_name", name,
+            "--set", "platform", platform]
+
+
+def window_key(meta):
+    return (f"{meta['city']}/{meta['seq']}/{int(meta['frame'])}/"
+            f"{int(meta['start_frame'])}")
+
+
+def odom_exports(cfg, store, platform):
+    """``export_odom`` (its ``main``) with configs/odom/odom_val.yaml and
+    seeded weights in the port's checkpoint, over the fixture's
+    Cityscapes table (``odometry_val.h5``, the pc reader's) and fg table
+    (``predicted_odometry_val.h5``, the fg reader's), on ``platform``;
+    each file read back through ``io.open_h5``, one array for every
+    window of the odometry dataset. Returns (working dir, {name: {key:
+    array}}, seconds per main)."""
+    root = os.path.dirname(cfg["working_dir"])
+    wd = os.path.join(root, f"odom_{platform}")
+    ckpt.save_model(wd, seeded_init_(OdomModel(conf("odom", "odom_val.yaml"),
+                                               device="cpu"), SEED + 2), best=True)
+    have = optional_packages()
+    out, secs = {}, {}
+    for name, table in (("odometry", "cs"), ("predicted_odometry", "fg")):
+        argv = odom_argv(wd, os.path.join(root, table), name, platform)
+        with synthetic.readers_from_store(store, tables=not have["pandas"],
+                                          arrays=not have["h5py"]):
+            ts = time.perf_counter()
+            export_odom.main(argv)
+            secs[name] = time.perf_counter() - ts
+            windows = build_dataset(load_config(argv), test=True).datasets["val"]
+            keys = {window_key(windows[i]["meta"]) for i in range(len(windows))}
+            h5 = data_io.open_h5(os.path.join(wd, f"{name}_val.h5"))
+            arrays, missing = {}, []
+            for k in sorted(keys):
+                try:
+                    arrays[k] = np.asarray(h5[k][:])
+                except KeyError:
+                    missing.append(k)
+            h5.close()
+        if missing or len(keys) != len(windows):
+            raise SystemExit(f"export_odom {name} on {platform}: {len(windows)} "
+                             f"windows, {len(keys)} keys, missing {missing[:3]}")
+        for r in windows.rows:  # the key the pc and fg readers look up: start 16
+            if f"{r['city']}/{r['seq']}/{int(r['frame'])}/16" not in arrays:
+                raise SystemExit(f"export_odom {name} lacks start 16 of {r['seq']}")
+        if not all(a.shape == (9, 2) and np.isfinite(a).all()
+                   for a in arrays.values()):
+            raise SystemExit(f"export_odom {name}: bad forecasts")
+        out[name] = arrays
+    return wd, out, secs
+
+
+def export_ms_per_batch(root, wd):
+    """Host ms per batch of ``export_split`` on the card over a val-sized
+    odometry table (``TIMED_SNIPPETS`` snippets of the port's
+    ``write_odom_fixture``), the model and data set up, the h5 going where
+    ``odom_exports`` puts it: (median, least, most of 3 passes, batches)."""
+    data_dir = os.path.join(root, "odom_timed")
+    store = synthetic.write_odom_fixture(data_dir, n_snippets=TIMED_SNIPPETS)
+    have = optional_packages()
+    with synthetic.readers_from_store(store, tables=not have["pandas"],
+                                      arrays=not have["h5py"]):
+        ocfg, task_data, model = setup(load_config(odom_argv(
+            wd, data_dir, "timed", "cuda")), test=True)
+        model = restore_params(ocfg, model)
+        times = []
+        for _ in range(3):
+            ts = time.perf_counter()
+            export_odom.export_split(model, task_data, "val", ocfg)
+            times.append(time.perf_counter() - ts)
+    batches = len(task_data.loader("val", ocfg, test=True))
+    lo, med, hi = (t * 1e3 / batches for t in sorted(times))
+    return med, lo, hi, batches
+
+
+@contextlib.contextmanager
+def h5_reads(reads):
+    """Within the block, each key read through ``io.open_h5`` from a file
+    at a path of ``reads`` is kept in ``reads[path]`` with the array
+    handed out."""
+    opened = data_io.open_h5
+
+    class Logged:
+        def __init__(self, h5, log):
+            self.h5, self.log = h5, log
+
+        def __getitem__(self, key):
+            self.log[key] = np.array(self.h5[key][:])
+            return self.h5[key]
+
+        def __getattr__(self, name):
+            return getattr(self.h5, name)
+
+    data_io.open_h5 = lambda path: (Logged(opened(path), reads[path])
+                                    if path in reads else opened(path))
+    try:
+        yield reads
+    finally:
+        data_io.open_h5 = opened
+
+
+def with_odometry(cfg, odom_dir):
+    """``cfg`` with the pc and fg readers' predicted odometry taken from
+    ``odom_dir``, and its own export name."""
+    pc = read_yaml(cfg["fused"]["pc_config"])
+    pc["data"]["odom_pred_dir"] = odom_dir
+    return dict(cfg, data=dict(cfg["data"], odom_pred_dir=odom_dir), fused=dict(
+        cfg["fused"], pc_config=dump(os.path.join(odom_dir, "pc.yaml"), pc)))
+
+
+def evaluate(pred_json, pred_dir, gt_json, gt_dir):
+    """evaluate_panoptic's ``main`` (its table of every class not
+    printed); (results, seconds)."""
+    ts = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = evaluate_panoptic.main(["--pred_json", pred_json, "--pred_dir", pred_dir,
+                                      "--gt_json", gt_json, "--gt_dir", gt_dir])
+    return res, time.perf_counter() - ts
+
+
+def score(report, gt_json, gt_dir):
+    """evaluate_panoptic on a CLI export; (results, seconds)."""
+    export = os.path.basename(report["result_dir"])
+    return evaluate(os.path.join(report["result_dir"], f"{export}.json"),
+                    os.path.join(report["result_dir"], export), gt_json, gt_dir)
+
+
+def gt_split(cfg, out):
+    """The fixture's gtFine converted under ``out``: (json, png dir, s)."""
+    cs = os.path.join(os.path.dirname(cfg["working_dir"]), "cs")
+    ts = time.perf_counter()
+    gt_json = convert_gt_split(cs, "val", out)
+    return gt_json, os.path.join(out, "cityscapes_panoptic_val"), time.perf_counter() - ts
+
+
+def score_phase(dev, fixtures, card):
+    """Phase 13: export_odom on the card (each table, equal to the CPU
+    export), the serving CLI reading those forecasts with the launch
+    counts set to 0 just before and read just after (every forecast the
+    readers look up taken from the exports, none from the fixture's own
+    odometry; its PNGs equal to the step's maps on the same inputs and
+    unlike phase 12's), the fixture's GT converted and scored against
+    itself (PQ 1) and against the CLI's maps; at 256x512 the GPU and CPU
+    CLI exports of phase 12 scored."""
+    ts0 = time.perf_counter()
+    cfg, store, phase12 = fixtures["full"]
+    wd, exported, export_s = odom_exports(cfg, store, "cuda")
+    _, on_cpu, _ = odom_exports(cfg, store, "cpu")
+    if any(exported[n].keys() != on_cpu[n].keys() for n in exported):
+        raise SystemExit("export_odom on the card and on the CPU differ in keys")
+    worst = max(float(np.abs(exported[n][k] - on_cpu[n][k]).max())
+                for n in exported for k in exported[n])
+    if not worst <= 1e-5:
+        raise SystemExit(f"export_odom on the card differs from the CPU: {worst}")
+    root = os.path.dirname(cfg["working_dir"])
+    ms_med, ms_lo, ms_hi, batches = export_ms_per_batch(root, wd)
+    print(f"[odom] export_odom on the card: {len(exported['odometry'])} + "
+          f"{len(exported['predicted_odometry'])} windows, equal to the CPU "
+          f"export (max abs diff {worst:.3e}); main {json.dumps(export_s)} s; "
+          f"{ms_med:.3f} ms per batch (passes {ms_lo:.3f}-{ms_hi:.3f}) over "
+          f"{batches} batches of a {TIMED_SNIPPETS}-snippet table | {card}")
+
+    served = with_odometry(cfg, wd)
+    reads = {os.path.join(d, f"{n}_val.h5"): {}
+             for d in (wd, os.path.join(root, "odom")) for n in exported}
+    reset_counts()
+    report = run_cli(served, store, export_name="fused_odom", reads=reads)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    frames = report["frames"]
+    print(f"[serve] {H}x{W} on the exported odometry: {frames} frames, "
+          f"launches {launches}")
+    if (frames != CLI_SCENES or launches["place_min_fold"] != frames
+            or launches["onehot_stem_conv"] != frames or launches["place_min"]):
+        raise SystemExit(f"the CLI on the exported odometry: {frames} frames, "
+                         f"launches {launches}")
+    for name, arrays in exported.items():
+        got = reads[os.path.join(wd, f"{name}_val.h5")]
+        start16 = {k for k in arrays if k.endswith("/16")}
+        if got.keys() != start16 or any(not np.array_equal(v, arrays[k])
+                                        for k, v in got.items()):
+            raise SystemExit(f"the CLI read {sorted(got)} of {name}, not the "
+                             f"exported start-16 forecasts {sorted(start16)}")
+        if reads[os.path.join(root, "odom", f"{name}_val.h5")]:
+            raise SystemExit(f"the CLI read the fixture's own {name}")
+    maps = cli_outputs(report)[0]
+    for name, pan in step_panoptics(served, store, dev).items():
+        if not np.array_equal(maps[name], pan):
+            raise SystemExit(f"the CLI's PNG of {name} on the exported odometry "
+                             f"differs from the step's map on "
+                             f"{int((maps[name] != pan).sum())} pixels")
+    before = cli_outputs(phase12["cuda"])[0]
+    moved = sum(int((maps[k] != before[k]).sum()) for k in maps)
+    print(f"[serve] the readers took "
+          f"{' + '.join(str(len(reads[os.path.join(wd, f'{n}_val.h5')])) for n in exported)}"
+          f" forecasts (start 16) from the exports, each equal to the exported "
+          f"array, none from the fixture's own; {frames} PNGs equal the step's "
+          f"maps; {moved} pixels unlike phase 12's (the fixture's odometry)")
+    if moved <= 0:
+        raise SystemExit("the maps on the exported odometry equal phase 12's")
+
+    gt_json, gt_dir, gt_s = gt_split(cfg, os.path.join(wd, "gt"))
+    self_res, self_s = evaluate(gt_json, gt_dir, gt_json, gt_dir)
+    valid = {k: v["pq"] for k, v in self_res["per_class"].items() if v["valid"]}
+    if not valid or any(v != 1.0 for v in valid.values()):
+        raise SystemExit(f"the GT scored against itself: {valid}")
+    res, pq_s = score(report, gt_json, gt_dir)
+    n_gt = len(cli_outputs(report)[1])
+    pq = {k: res[k]["pq"] for k in ("All", "Things", "Stuff")}
+    print(f"[score] GT of {n_gt} frames converted in {gt_s:.3f} s; scored "
+          f"against itself: PQ 1.0 on {sorted(valid)} ({self_s:.3f} s) | {card}")
+    print(f"[score] {H}x{W} forecast: PQ {json.dumps(pq)} (Things has no GT "
+          f"instance: false positives only), {pq_s / n_gt:.4f} s per frame | {card}")
+
+    small, small_store, reports = fixtures["small"]
+    gt_json, gt_dir, _ = gt_split(small, os.path.join(os.path.dirname(
+        small["working_dir"]), "gt"))
+    small_res = {p: score(r, gt_json, gt_dir)[0] for p, r in reports.items()}
+    maps = {p: cli_outputs(r)[0] for p, r in reports.items()}
+    same = all(np.array_equal(maps["cuda"][k], maps["cpu"][k]) for k in maps["cpu"])
+    gap = max(abs(small_res["cuda"][k]["pq"] - small_res["cpu"][k]["pq"])
+              for k in ("All", "Things", "Stuff"))
+    print(f"[score] {H_SMALL}x{W_SMALL} GPU against CPU: maps "
+          f"{'equal' if same else 'differ'}, PQ dicts "
+          f"{'equal' if small_res['cuda'] == small_res['cpu'] else 'differ'}, "
+          f"largest PQ gap {gap:.3e}")
+    if (same and small_res["cuda"] != small_res["cpu"]) or not gap < 1e-3:
+        raise SystemExit("the GPU and CPU exports score differently")
+    phase_s = time.perf_counter() - ts0
+    print(f"[score] phase 13 took {phase_s:.1f} s")
+    return {"export_odom_ms_per_batch": ms_med,
+            "export_odom_ms_per_batch_passes": [ms_lo, ms_hi],
+            "export_odom_batches": batches, "export_odom_main_s": export_s,
+            "gt_convert_s": gt_s, "pq_s_per_frame": pq_s / n_gt, "pq": pq,
+            "launches": launches, "moved_pixels": moved, "small_pq_gap": gap,
+            "phase_s": phase_s}
 
 
 def main() -> int:
@@ -1136,8 +1435,10 @@ def main() -> int:
         if k.startswith(("k3", "k4")) or k in ("k1_device", "k2_device"):
             print(f"[time] {k} {v:.4f} ms")
 
-    # ---- 12. the serving CLI, counted ------------------------------------------
-    cli_launches, cli_readings = cli_phase(dev)
+    # ---- 12. the serving CLI, counted; 13. serve and score --------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        cli_launches, cli_readings, fixtures = cli_phase(dev, root)
+        score_readings = score_phase(dev, fixtures, card)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
@@ -1223,7 +1524,8 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": kernels, "cli": {
         k: cli_readings[k] for k in ("frames", "frames_per_s", "median_ms",
-                                     "png_decode_ms")}}))
+                                     "png_decode_ms", "thing_pixels")},
+        "score": score_readings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -59,9 +59,15 @@ def _load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 
 def _torch_checkpoint_stats(cfg) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """{name: (mean, std)} of the checkpoint's statistics, each 1-D (the
+    JAX package's ``reference_import._stat``)."""
     sd = _load_torch_checkpoint(cfg["load_torch_model"])
+
+    def stat(k):
+        return sd[k].numpy().reshape(-1)
+
     return {
-        k[: -len("_mean")]: (sd[k].numpy(), sd[k[: -len("_mean")] + "_std"].numpy())
+        k[: -len("_mean")]: (stat(k), stat(k[: -len("_mean")] + "_std"))
         for k in sd
         if ckpt.is_stat_key(k) and k.endswith("_mean")
     }

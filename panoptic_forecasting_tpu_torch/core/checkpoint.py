@@ -8,9 +8,10 @@ tensors); Orbax directories of the JAX package are not read (carry JAX
 weights across with ``models/convert.py``).
 
 Normalisation statistics (top-level ``*_mean``/``*_std`` buffers, such as
-bg ``depth_mean`` or fg ``traj_std``) are saved but not restored: the JAX
-package keeps them out of its checkpoints and takes them from the data
-card, so a restored module keeps the statistics it was built with.
+odom ``odom_mean``, bg ``depth_mean`` or fg ``traj_std``) are saved but
+not restored: the JAX package keeps them out of its checkpoints and
+takes them from the data card, so a restored module keeps the statistics
+it was built with.
 """
 
 from __future__ import annotations

@@ -68,6 +68,7 @@ TRAIN_ID_TO_ID: Dict[int, int] = {
     l.train_id: l.id for l in LABELS if l.train_id not in (255, -1)
 }
 ID_TO_TRAIN_ID: Dict[int, int] = {l.id: l.train_id for l in LABELS if l.id >= 0}
+ID_TO_LABEL: Dict[int, Label] = {l.id: l for l in LABELS}
 
 
 def train_id_to_id_lut(void_id: int = 0) -> np.ndarray:

@@ -6,9 +6,10 @@ pc_transform_dataset.py:115,141,274, re-derived from the Cityscapes
 disparity encoding). PNG goes through the port's own codec
 (``data/png.py``), not libpng or Pillow.
 
-Every reader of a pandas table goes through ``read_table`` and every
-reader of an HDF5 file through ``open_h5``: the one place each format's
-package (pandas, h5py) is imported.
+Every reader of a pandas table goes through ``read_table``, every reader
+of an HDF5 file through ``open_h5`` and every writer of one through
+``write_h5``: the one place each format's package (pandas, h5py) is
+imported for each.
 """
 
 from __future__ import annotations
@@ -38,6 +39,17 @@ def read_table(path: str) -> List[Dict[str, Any]]:
 def open_h5(path: str) -> "LazyH5":
     """An HDF5 file (ROI features, predicted odometry) for reading."""
     return LazyH5(path)
+
+
+def write_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """Write ``{key: array}`` as an HDF5 file (each ``/`` of a key makes a
+    group), replacing ``path``."""
+    import h5py
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as h5:
+        for key, arr in arrays.items():
+            h5.create_dataset(key, data=arr)
 
 
 def load_png(path: str) -> np.ndarray:

@@ -3,9 +3,9 @@
 Counterpart of ``panoptic_forecasting_tpu/data/pipelines.py`` (reference
 ``data/__init__.py:14-31``): each builder returns a ``TaskData`` bundle of
 split datasets and the DataCard handed to the model builder. Ported
-tasks: ``pc_transform``, ``bg`` (its serving card only, ``bg_data.py``)
-and ``fg`` with ``dataset_type: fg_scene``; the odometry and fg-instance
-(training) datasets are not ported yet and raise.
+tasks: ``odom``, ``pc_transform``, ``bg`` (its serving card only,
+``bg_data.py``) and ``fg`` with ``dataset_type: fg_scene``; the
+fg-instance (training) dataset is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -41,6 +41,16 @@ class TaskData:
         prefetch = int(t.get("prefetch_batches", 2 if threads else 0))
         return Loader(self.datasets[split], bs, collate_fn=self.collate_fn,
                       prefetch=prefetch, num_threads=threads)
+
+
+@register_dataset("odom")
+def build_odom_data(cfg, test: bool = False) -> TaskData:
+    from .odom_data import OdomDataset
+
+    card = DataCard(task="odom")
+    splits = cfg.get("data", {}).get("data_splits", ["train", "val"])
+    datasets = {s: OdomDataset(s, cfg, card, test=test) for s in splits}
+    return TaskData(datasets=datasets, card=card)
 
 
 @register_dataset("pc_transform")

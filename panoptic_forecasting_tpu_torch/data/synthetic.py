@@ -7,19 +7,22 @@ low-rank ROI features), writing only what the port's readers open:
 * ``write_cityscapes_fixture``: camera, timestamp and vehicle files of
   all 30 frames of each snippet; disparity and ``pred_mask`` seg PNGs of
   the three input frames of target 19 (``gap_len``); the annotated
-  frame's ``gtFine`` labelIds PNG; ``{split}_3d_info.pkl``;
+  frame's ``gtFine`` labelIds and instanceIds PNGs; ``{split}_3d_info.pkl``;
 * ``write_fg_fixture``: the scene tables, depth tables, ROI feature h5
   and ``{split}_3d_info.pkl`` of the fg-scene dataset;
 * ``write_odom_predictions``: a predicted-odometry h5 (speed, yaw rate
-  per future step) keyed ``city/seq/frame/start``.
+  per future step) keyed ``city/seq/frame/start``;
+* ``write_odom_fixture``: the odometry dataset's ``{split}_3d_info.pkl``
+  tables (``make_odom_table``).
 
 PNGs go through the port's codec. Tables are pickled pandas frames and
 feature/odometry files HDF5; each writer also returns them in memory
 (``{path: rows}`` and ``{path: {key: array}}``), and writes a format only
 where its package (pandas, h5py) imports. On a machine without one of
 them, ``readers_from_store`` serves that format's reader function
-(``io.read_table``, ``io.open_h5``) from the returned store, so the
-datasets and everything after them run unchanged.
+(``io.read_table``, ``io.open_h5``) from the returned store, and takes
+the h5 writes (``io.write_h5``) into it, so the datasets, the exports
+and everything after them run unchanged.
 """
 
 from __future__ import annotations
@@ -36,6 +39,33 @@ from .cityscapes import train_id_to_id_lut
 from .io import PNG_IDS, save_png
 
 CITY = "synthcity"
+
+
+def make_odom_table(n_snippets: int, seed: int) -> List[Dict]:
+    """Rows of ``{split}_3d_info.pkl`` with the JAX fixture's content:
+    city, seq, frame, odometry (30, 5) float32 — [speed, yaw_rate,
+    *unused]."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n_snippets):
+        t = np.linspace(0, 1, 30)
+        speed = 8.0 + 4.0 * np.sin(2 * np.pi * (t + rng.rand())) + rng.randn() * 0.5
+        yaw = 0.1 * np.sin(2 * np.pi * (t * 2 + rng.rand())) + rng.randn() * 0.01
+        odom = np.zeros((30, 5), np.float32)
+        odom[:, 0] = np.maximum(speed, 0.0)
+        odom[:, 1] = yaw
+        rows.append({"city": CITY, "seq": f"{i:06d}", "frame": 19, "odometry": odom})
+    return rows
+
+
+def write_odom_fixture(data_dir: str, n_snippets: int = 6) -> Dict[str, Any]:
+    """The odometry dataset's train and val tables, split k from seed k.
+    Returns the store that holds them."""
+    store = new_store()
+    for k, split in enumerate(("train", "val")):
+        _store_table(store, os.path.join(data_dir, f"{split}_3d_info.pkl"),
+                     make_odom_table(n_snippets, seed=k))
+    return store
 
 
 def make_camera_json(height: int = 128, width: int = 256) -> Dict:
@@ -110,12 +140,9 @@ def _store_arrays(store: Dict[str, Any], path: str,
     store["arrays"][path] = arrays
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     try:
-        import h5py
-    except ImportError:
-        return
-    with h5py.File(path, "w") as h5:
-        for key, arr in arrays.items():
-            h5.create_dataset(key, data=arr)
+        io.write_h5(path, arrays)
+    except ImportError:  # no h5py here: the store holds the arrays
+        pass
 
 
 def new_store() -> Dict[str, Any]:
@@ -184,9 +211,12 @@ def write_cityscapes_fixture(
             save_png(path("seg", "leftImg8bit.png", "pred_mask_"),
                      lut[segs[ind]], **PNG_IDS)
         name = f"{CITY}_{seq}_{frame:06d}"
-        save_png(os.path.join(root, "gtFine", split, CITY,
-                              f"{name}_gtFine_labelIds.png"),
-                 lut[segs[19]], **PNG_IDS)
+        gt = os.path.join(root, "gtFine", split, CITY, name)
+        save_png(f"{gt}_gtFine_labelIds.png", lut[segs[19]], **PNG_IDS)
+        # instanceIds: the stuff scene's labelIds (no thing instances), the
+        # PQ evaluator's GT
+        save_png(f"{gt}_gtFine_instanceIds.png",
+                 lut[segs[19]].astype(np.uint16), **PNG_IDS)
     _store_table(store, os.path.join(root, f"{split}_3d_info.pkl"), rows)
     return store
 
@@ -319,8 +349,9 @@ def readers_from_store(store: Dict[str, Any], tables: bool = True,
                        arrays: bool = True):
     """Within the block, ``io.read_table`` (``tables``) and ``io.open_h5``
     (``arrays``) answer the paths ``store`` holds from memory; other paths
-    still go to the files."""
-    saved = io.read_table, io.open_h5
+    still go to the files. With ``arrays``, ``io.write_h5`` writes into
+    ``store`` and not to a file."""
+    saved = io.read_table, io.open_h5, io.write_h5
 
     def read_table(path):
         rows = store["tables"].get(path)
@@ -330,11 +361,14 @@ def readers_from_store(store: Dict[str, Any], tables: bool = True,
         data = store["arrays"].get(path)
         return saved[1](path) if data is None else ArrayFile(data)
 
+    def write_h5(path, data):
+        store["arrays"][path] = dict(data)
+
     if tables:
         io.read_table = read_table
     if arrays:
-        io.open_h5 = open_h5
+        io.open_h5, io.write_h5 = open_h5, write_h5
     try:
         yield store
     finally:
-        io.read_table, io.open_h5 = saved
+        io.read_table, io.open_h5, io.write_h5 = saved

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .fg import GRUCell
+from .layers import GRUCell
 
 
 def _draw(g: torch.Generator, shape, std: float = 1.0, mean: float = 0.0):

@@ -7,7 +7,7 @@ PyTorch names and layouts (OIHW convs, (out, in) linears, ``nn.GRU`` gate
 rows r | z | n). Pass numpy arrays (``np.asarray`` of each leaf).
 
 They are the exact inverse of the JAX package's
-``models/reference_import.py::{bg,fg}_from_reference``: converting
+``models/reference_import.py::{odom,bg,fg}_from_reference``: converting
 back reproduces the JAX variables bit for bit.
 """
 
@@ -103,6 +103,30 @@ def _gru(p: Tree, prefix: str, out):
     hn_b = np.asarray(p["hn"]["bias"])
     out[f"{prefix}.bias_hh_l0"] = _t(np.concatenate(
         [np.zeros_like(hn_b), np.zeros_like(hn_b), hn_b]))
+
+
+def _mlp(p: Tree, prefix: str, out):
+    """MLP {dense_i} -> Sequential with the Linears at even indices."""
+    for i in range(len(p)):
+        _dense(p[f"dense_{i}"], f"{prefix}.{2 * i}", out)
+
+
+def odom_state_dict_from_jax(params: Tree,
+                             stats: Optional[Tuple[Sequence[float], Sequence[float]]] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """OdomNet params (``{"core": {cell, head[, emb]}}``) + the (mean, std)
+    of the odometry -> ``OdomModel`` state_dict (``rnn.*``, ``out.*``,
+    ``inp_emb.*``, ``odom_mean``/``odom_std``)."""
+    core = params["core"]
+    out: Dict[str, torch.Tensor] = {}
+    _gru(core["cell"], "rnn", out)
+    _mlp(core["head"], "out", out)
+    if "emb" in core:
+        _mlp(core["emb"], "inp_emb", out)
+    mean, std = stats if stats is not None else (np.zeros(2), np.ones(2))
+    out["odom_mean"] = _t(np.asarray(mean, np.float32).reshape(-1))
+    out["odom_std"] = _t(np.asarray(std, np.float32).reshape(-1))
+    return out
 
 
 def _traj_head(p: Tree, prefix: str, out):

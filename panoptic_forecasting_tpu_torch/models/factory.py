@@ -1,9 +1,10 @@
 """Model registry wiring (reference: models/__init__.py:16-41).
 
 Counterpart of ``panoptic_forecasting_tpu/models/factory.py``. Each
-builder reads what the JAX model reads from the data card: the bg class
-count and depth statistics, the fg trajectory/depth/odometry statistics
-(absent statistics default to mean 0, std 1, as in JAX).
+registered function reads what the JAX model reads from the data card:
+the odometry statistics, the bg class count and depth statistics, the fg
+trajectory/depth/odometry statistics (absent statistics default to mean
+0, std 1, as in JAX).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from ..core.registry import register_model
 from .bg import BGModel
 from .fg import FGModel
+from .odom import OdomModel
 from .pc_transform import PCTransformModel
 
 
@@ -18,6 +20,12 @@ def card_stats(card, names):
     """{name: (mean, std)} of the statistics ``card`` holds among ``names``."""
     stats = getattr(card, "stats", {}) if card is not None else {}
     return {n: (card.mean(n), card.std(n)) for n in names if n in stats}
+
+
+@register_model("odom")
+def build_odom_model(cfg, data_card=None, device=None):
+    return OdomModel(cfg, stats=card_stats(data_card, ("odom",)).get("odom"),
+                     device=device)
 
 
 @register_model("pc_transform")

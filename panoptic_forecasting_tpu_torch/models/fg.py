@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from .convlstm import ConvLSTMStack
+from .layers import MLP, GRUCell
 from .mask_head import MaskRCNNConvUpsampleHead
 
 ODOM_DIM = 5
@@ -52,40 +53,13 @@ def expand_traj_mask(mask, vel_mask=None, result_size: int = 4) -> torch.Tensor:
     return torch.cat([loc, vel], -1)
 
 
-class GRUCell(nn.Module):
-    """One torch ``nn.GRU`` layer (gate rows r | z | n), stepped by hand."""
-
-    def __init__(self, in_features: int, hidden: int):
-        super().__init__()
-        self.hidden = hidden
-        self.weight_ih_l0 = nn.Parameter(torch.empty(3 * hidden, in_features))
-        self.weight_hh_l0 = nn.Parameter(torch.empty(3 * hidden, hidden))
-        self.bias_ih_l0 = nn.Parameter(torch.zeros(3 * hidden))
-        self.bias_hh_l0 = nn.Parameter(torch.zeros(3 * hidden))
-        bound = hidden ** -0.5
-        for w in (self.weight_ih_l0, self.weight_hh_l0):
-            nn.init.uniform_(w, -bound, bound)
-
-    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        i_r, i_z, i_n = F.linear(x, self.weight_ih_l0, self.bias_ih_l0).chunk(3, -1)
-        h_r, h_z, h_n = F.linear(h, self.weight_hh_l0, self.bias_hh_l0).chunk(3, -1)
-        r = torch.sigmoid(i_r + h_r)
-        z = torch.sigmoid(i_z + h_z)
-        n = torch.tanh(i_n + r * h_n)
-        return (1.0 - z) * n + z * h
-
-
 def _traj_out_head(in_f: int, hidden: int, out_size: int,
                    num_layers: int) -> nn.Module:
     """Linear, or Sequential[(Linear, ReLU) * (n-1), Linear] (fg_model.py:
     118-132)."""
     if num_layers == 1:
         return nn.Linear(in_f, out_size)
-    mods = []
-    for i in range(num_layers - 1):
-        mods += [nn.Linear(in_f if i == 0 else hidden, hidden), nn.ReLU()]
-    mods.append(nn.Linear(hidden, out_size))
-    return nn.Sequential(*mods)
+    return MLP(in_f, (hidden,) * (num_layers - 1) + (out_size,), relu_first=True)
 
 
 class FGModel(nn.Module):

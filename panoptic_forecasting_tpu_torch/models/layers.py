@@ -1,0 +1,58 @@
+"""Shared NN building blocks: the MLP stack and one GRU layer.
+
+Counterpart of ``panoptic_forecasting_tpu/models/layers.py``. Both keep
+the reference PyTorch ``state_dict`` names: an MLP is an
+``nn.Sequential`` with its Linears at even indices (``out.0``,
+``out.2``, ..., odom_model.py:31-52), a GRU layer holds ``nn.GRU``'s
+``weight_ih_l0``/``weight_hh_l0``/``bias_ih_l0``/``bias_hh_l0``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class MLP(nn.Sequential):
+    """Linear stack from ``in_features`` through ``features``.
+    ``relu_first`` puts a ReLU between consecutive layers (the reference's
+    output-head pattern, odom_model.py:46-52); ``relu_last`` puts one
+    after every layer (the input-embedding pattern, odom_model.py:31-35)."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 relu_first: bool = False, relu_last: bool = False):
+        mods = []
+        for i, f in enumerate(features):
+            if relu_first and i > 0:
+                mods.append(nn.ReLU())
+            mods.append(nn.Linear(in_features, f))
+            if relu_last:
+                mods.append(nn.ReLU())
+            in_features = f
+        super().__init__(*mods)
+
+
+class GRUCell(nn.Module):
+    """One torch ``nn.GRU`` layer (gate rows r | z | n), stepped by hand."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih_l0 = nn.Parameter(torch.empty(3 * hidden, in_features))
+        self.weight_hh_l0 = nn.Parameter(torch.empty(3 * hidden, hidden))
+        self.bias_ih_l0 = nn.Parameter(torch.zeros(3 * hidden))
+        self.bias_hh_l0 = nn.Parameter(torch.zeros(3 * hidden))
+        bound = hidden ** -0.5
+        for w in (self.weight_ih_l0, self.weight_hh_l0):
+            nn.init.uniform_(w, -bound, bound)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        i_r, i_z, i_n = F.linear(x, self.weight_ih_l0, self.bias_ih_l0).chunk(3, -1)
+        h_r, h_z, h_n = F.linear(h, self.weight_hh_l0, self.bias_hh_l0).chunk(3, -1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h

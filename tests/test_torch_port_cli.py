@@ -267,3 +267,27 @@ def test_cli_device_rule(world, monkeypatch):
     i = argv.index("fused.pc_config")
     with pytest.raises(SystemExit, match="fused.pc_config"):
         forecast_fused.main(argv[:i - 1] + argv[i + 2:])
+
+
+def test_cli_scores_match_jax(world, tmp_path):
+    """Both ``evaluate_panoptic`` CLIs score each package's export of the
+    module fixture against its GT (converted from gtFine on the fly, each
+    package into its own directory) and give equal results; the port's
+    ``--results_json`` holds what its ``main`` returns."""
+    from panoptic_forecasting_tpu.cli import evaluate_panoptic as jax_evaluate
+    from panoptic_forecasting_tpu_torch.cli import evaluate_panoptic
+
+    cs = os.path.join(os.path.dirname(world["dirs"]["jax_fg"]), "cs")
+    for side in ("jax", "port"):
+        export = os.path.join(world["dirs"][f"{side}_fg"], EXPORT)
+        argv = ["--pred_json", os.path.join(export, f"{EXPORT}.json"),
+                "--pred_dir", os.path.join(export, EXPORT),
+                "--cityscapes_dir", cs, "--split", "val"]
+        want = jax_evaluate.main(argv + ["--gt_out", str(tmp_path / f"jax_{side}")])
+        results = str(tmp_path / f"{side}.json")
+        got = evaluate_panoptic.main(argv + ["--gt_out", str(tmp_path / f"port_{side}"),
+                                             "--results_json", results])
+        assert got == want, side
+        with open(results) as f:
+            assert json.load(f) == json.loads(json.dumps(got))
+        assert got["Stuff"]["n"] > 1  # classes with FP or FN were scored

@@ -339,6 +339,52 @@ def test_bg_serving_depth_stats_are_identity(world, tmp_path):
     assert model.num_classes == jax_model.num_classes == 11
 
 
+JAX_CACHE_KEYS = ("jax_compilation_cache_dir",
+                  "jax_persistent_cache_min_compile_time_secs",
+                  "jax_persistent_cache_min_entry_size_bytes")
+
+
+def test_reference_bg_pt_with_0d_stats_sets_up_as_jax(tmp_path):
+    """A reference-format bg ``.pt`` whose depth statistics are 0-d
+    tensors goes through both packages' ``setup`` (``--load_torch_model``)
+    and gives the bg model the same depth statistics: each statistic is
+    read as 1-D, as the JAX package's importer reads it."""
+    import jax
+
+    from panoptic_forecasting_tpu.cli.common import setup as jax_setup
+    from panoptic_forecasting_tpu_torch.cli.common import setup
+
+    bg_data = write_bg_fixture(str(tmp_path / "bg"), splits=("val",))
+    cfg = dict(BG_CFG, data=dict(bg_data, data_splits=["val"],
+                                 only_background=True, use_depths=True))
+    card = build_dataset(cfg, test=True).card
+    sd = seeded_init_(build_model(cfg, card, "cpu"), 5).state_dict()
+    sd["depth_mean"], sd["depth_std"] = torch.tensor(20.0), torch.tensor(12.0)
+    pt = str(tmp_path / "bg_reference.pt")
+    torch.save(sd, pt)
+    cfg_path = str(tmp_path / "bg.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    argv = ["--working_dir", str(tmp_path / "run"), "--config_file", cfg_path,
+            "--load_torch_model", pt]
+
+    saved = {k: getattr(jax.config, k) for k in JAX_CACHE_KEYS}
+    try:
+        _, jax_data, jax_model = jax_setup(
+            argv + ["--set", "compilation_cache_dir",
+                    saved["jax_compilation_cache_dir"]], test=True)
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    _, data, model = setup(load_config(argv + ["--set", "platform", "cpu"]), test=True)
+    assert (jax_model.depth_mean, jax_model.depth_std) == (20.0, 12.0)
+    assert (float(model.depth_mean), float(model.depth_std)) == (20.0, 12.0)
+    for stat in ("mean", "std"):
+        np.testing.assert_array_equal(data.card.stats["depth"][stat],
+                                      jax_data.card.stats["depth"][stat])
+        assert data.card.stats["depth"][stat].shape == (1,)
+
+
 # ---- the port's fixtures ---------------------------------------------------------
 
 
