@@ -6,7 +6,10 @@
 Drives the port's main paths once each: the chain export_odom ->
 forecast_fused -> evaluate_panoptic (``python -m
 panoptic_forecasting_tpu_torch.cli.{export_odom,forecast_fused,
-evaluate_panoptic}``, phases 12-13) and the single-call panoptic
+evaluate_panoptic}``, phases 12-13), the paper's staged chain
+prepare_gt_nofg -> prepare_bg_data -> export_segmentation ->
+export_panoptic / export_instances -> evaluate_panoptic /
+evaluate_instances -> viz_panoptic (phase 14) and the single-call panoptic
 forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
@@ -98,11 +101,30 @@ Phases (any failure exits non-zero):
      phase 12 scored (equal PQ where the maps are equal, else < 1e-3
      apart); export ms per batch over a val-sized table (500 snippets:
      median and range of 3 passes), GT conversion s, PQ s per frame and
-     PQ All/Things/Stuff printed with the card's name and power limit.
+     PQ All/Things/Stuff printed with the card's name and power limit;
+ 14. the staged chain on the phase 12 fixture, the launch counts set to
+     0 just before each CLI and read just after: prepare_gt_nofg;
+     prepare_bg_data with configs/pc_transform/pc_export.yaml (gap 3),
+     its depth h5 into the store (``io.append_h5``), 3 place_min_fold a
+     pc batch; the bg canvases (export_segmentation with
+     configs/bg/bg_val_short.yaml, ``gap_len [3]``, ``no_convert``), 1
+     onehot_stem_conv a bg batch; export_panoptic over them; the generic
+     place_min never. The canvases equal, off the bg's near-ties, the
+     step's bg fed the staged chain's inputs (labelIds converted after
+     the splat, depth through its uint16 encoding), the panoptic maps
+     there within 1e-3; the staged maps against phase 12's fused PNGs
+     (mismatch and the segment ids in one map only, reported; < 5 %);
+     evaluate_panoptic; export_instances and evaluate_instances (allAp
+     0, NaN per class: the fixture has no GT instance) and a 1024x2048
+     instance map with two thing instances scored against its own masks
+     (AP 1); viz_panoptic on one frame; the chain at 256x512 on the card
+     against the CPU (canvases and panoptic maps: ids equal, < 1e-3).
+     Prints ms per frame of each stage and PQ and AP s per frame.
 
 Prints the card's name and power limit, one JSON line describing every
-kernel (both K1 entry points, K2, K3 and each K4 probe) and the CLI's
-readings, and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without a result when
+kernel (both K1 entry points, K2, K3 and each K4 probe) and the CLI's,
+the scoring's and the staged chain's readings, and last a JSON line
+{"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
 """
 
@@ -110,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import importlib.util
 import io
 import json
@@ -123,7 +146,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from panoptic_forecasting_tpu_torch.cli import evaluate_panoptic, export_odom, forecast_fused
+from panoptic_forecasting_tpu_torch.cli import (
+    evaluate_instances, evaluate_panoptic, export_instances, export_odom,
+    export_panoptic, export_segmentation, forecast_fused, prepare_bg_data,
+    prepare_gt_nofg, viz_panoptic,
+)
 from panoptic_forecasting_tpu_torch.cli.common import restore_params, setup
 from panoptic_forecasting_tpu_torch.core import build_dataset, build_model
 from panoptic_forecasting_tpu_torch.core import checkpoint as ckpt
@@ -750,6 +777,14 @@ def optional_packages():
     return {m: importlib.util.find_spec(m) is not None for m in OPTIONAL}
 
 
+def store_readers(store):
+    """The fixture's in-memory readers for the formats whose package is
+    missing here (h5 writes go there too)."""
+    have = optional_packages()
+    return synthetic.readers_from_store(store, tables=not have["pandas"],
+                                        arrays=not have["h5py"])
+
+
 def read_yaml(path):
     import yaml
 
@@ -827,27 +862,27 @@ def run_cli(cfg, store, platform=None, export_name=None, reads=None):
     store. ``reads`` ({path: {}}) takes each key the readers look up in
     the h5 file at one of its paths (``h5_reads``)."""
     cfg = dict(cfg, platform=platform, export_name=export_name)
-    have = optional_packages()
-    with synthetic.readers_from_store(store, tables=not have["pandas"],
-                                      arrays=not have["h5py"]), h5_reads(reads or {}):
+    with store_readers(store), h5_reads(reads or {}):
         return forecast_fused.run(Config(cfg))["val"]
 
 
-def cli_outputs(report):
-    export = os.path.basename(report["result_dir"])
-    with open(os.path.join(report["result_dir"], f"{export}.json")) as f:
+def panoptic_maps(result_dir):
+    """({frame name: panoptic map}, annotations) of a COCO-panoptic export."""
+    export = os.path.basename(result_dir)
+    with open(os.path.join(result_dir, f"{export}.json")) as f:
         anns = json.load(f)["annotations"]
-    seg_dir = os.path.join(report["result_dir"], export)
     return {a["image_id"]: decode_panoptic_png(load_png(os.path.join(
-        seg_dir, a["file_name"]))) for a in anns}, anns
+        result_dir, export, a["file_name"]))) for a in anns}, anns
+
+
+def cli_outputs(report):
+    return panoptic_maps(report["result_dir"])
 
 
 def step_panoptics(cfg, store, dev):
     """{frame name: labelId panoptic map} of every forecast frame, from
     ``step(...)`` on the frame's inputs, outside the CLI's loop."""
-    have = optional_packages()
-    with synthetic.readers_from_store(store, tables=not have["pandas"],
-                                      arrays=not have["h5py"]):
+    with store_readers(store):
         cfg, task_data, fg_model = setup(Config(cfg), test=True)
         fg_model = restore_params(cfg, fg_model)
         bg_model = forecast_fused._build_bg(cfg["fused"], dev)
@@ -1007,12 +1042,10 @@ def odom_exports(cfg, store, platform):
     wd = os.path.join(root, f"odom_{platform}")
     ckpt.save_model(wd, seeded_init_(OdomModel(conf("odom", "odom_val.yaml"),
                                                device="cpu"), SEED + 2), best=True)
-    have = optional_packages()
     out, secs = {}, {}
     for name, table in (("odometry", "cs"), ("predicted_odometry", "fg")):
         argv = odom_argv(wd, os.path.join(root, table), name, platform)
-        with synthetic.readers_from_store(store, tables=not have["pandas"],
-                                          arrays=not have["h5py"]):
+        with store_readers(store):
             ts = time.perf_counter()
             export_odom.main(argv)
             secs[name] = time.perf_counter() - ts
@@ -1046,9 +1079,7 @@ def export_ms_per_batch(root, wd):
     ``odom_exports`` puts it: (median, least, most of 3 passes, batches)."""
     data_dir = os.path.join(root, "odom_timed")
     store = synthetic.write_odom_fixture(data_dir, n_snippets=TIMED_SNIPPETS)
-    have = optional_packages()
-    with synthetic.readers_from_store(store, tables=not have["pandas"],
-                                      arrays=not have["h5py"]):
+    with store_readers(store):
         ocfg, task_data, model = setup(load_config(odom_argv(
             wd, data_dir, "timed", "cuda")), test=True)
         model = restore_params(ocfg, model)
@@ -1223,6 +1254,339 @@ def score_phase(dev, fixtures, card):
             "gt_convert_s": gt_s, "pq_s_per_frame": pq_s / n_gt, "pq": pq,
             "launches": launches, "moved_pixels": moved, "small_pq_gap": gap,
             "phase_s": phase_s}
+
+
+# ---- 14. the staged chain -----------------------------------------------------
+
+def counted(fn, *args):
+    """``fn(*args)`` with the launch counts set to 0 just before and read
+    just after; (result, launches, seconds)."""
+    reset_counts()
+    ts = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, read_counts(), time.perf_counter() - ts
+
+
+def staged_configs(cfg, root, tag):
+    """The staged chain's configs on the fixture of ``cfg`` (phase 12's):
+    configs/pc_transform/pc_export.yaml as phase 12 sets it (gap 3),
+    configs/bg/bg_val_short.yaml on the prepared bg data with
+    ``gap_len [3]`` (the fixture is short-term), and the fg config with
+    ``background_dir`` on the canvases ``bg_staged{tag}``. -> (pc, bg,
+    fg) paths."""
+    cs = os.path.join(os.path.dirname(cfg["working_dir"]), "cs")
+    bg_data = os.path.join(root, "bg_data")
+    os.makedirs(root, exist_ok=True)
+    bg = read_yaml(cfg["fused"]["bg_config"])
+    bg["data"].update(
+        data_dir=[os.path.join(bg_data, f"point_cloud_static_ind{i}_all",
+                               "exported_predictions") for i in range(3)],
+        gt_dir=os.path.join(root, "nofg"), cityscapes_dir=cs, gap_len=[3],
+        depth_h5_path=os.path.join(bg_data, "depths_decompressed_%s.h5"))
+    fg = dict(cfg, data=dict(cfg["data"], background_dir=os.path.join(
+        cfg["fused"]["bg_dir"], f"bg_staged{tag}")))
+    fg.pop("fused")
+    return (cfg["fused"]["pc_config"], dump(os.path.join(root, "bg.yaml"), bg),
+            dump(os.path.join(root, "fg.yaml"), fg))
+
+
+def staged_chain(cfg, store, root, platform, tag=""):
+    """prepare_gt_nofg, prepare_bg_data, the bg canvas export
+    (``bg_staged{tag}``) and export_panoptic (``staged{tag}``) on
+    ``platform``, each CLI counted. Returns ({stage: (result, launches,
+    seconds)}, export_panoptic's arguments, the bg config)."""
+    pc_cfg, bg_cfg, fg_cfg = staged_configs(cfg, root, tag)
+    cs = os.path.join(os.path.dirname(cfg["working_dir"]), "cs")
+    plat = ["--set", "platform", platform]
+    out = {}
+    with store_readers(store):
+        out["nofg"] = counted(prepare_gt_nofg.main, ["--cityscapes_dir", cs, "--splits",
+                                                     "val", "--out_dir",
+                                                     os.path.join(root, "nofg")])
+        out["bg_data"] = counted(prepare_bg_data.main, [
+            "--working_dir", os.path.join(root, "pc_run"), "--config_file", pc_cfg,
+            "--set", "bg_out", os.path.join(root, "bg_data")] + plat)
+        bg_argv = ["--working_dir", cfg["fused"]["bg_dir"], "--config_file", bg_cfg,
+                   "--set", "no_convert", "true", "--set", "export_name", f"bg_staged{tag}"]
+        out["bg_export"] = counted(export_split_timed, export_segmentation, bg_argv + plat)
+        fg_argv = ["--working_dir", cfg["working_dir"], "--config_file", fg_cfg,
+                   "--load_torch_model", cfg["load_torch_model"],
+                   "--set", "export_name", f"staged{tag}"] + plat
+        out["panoptic"] = counted(export_split_timed, export_panoptic, fg_argv)
+    return out, fg_argv, read_yaml(bg_cfg)
+
+
+def export_split_timed(cli, argv):
+    """``cli.main``'s work with its set-up apart: (result of export_split,
+    frames, host seconds of export_split)."""
+    ecfg, task_data, model = setup(load_config(argv), test=True)
+    model = restore_params(ecfg, model)
+    if hasattr(model, "maybe_fold"):
+        model = model.maybe_fold()
+    ts = time.perf_counter()
+    out = cli.export_split(model, task_data, "val", ecfg)
+    secs = time.perf_counter() - ts
+    return out, len(task_data.datasets["val"]), secs
+
+
+def canvases(root_dir):
+    """{frame name: class map} of a bg canvas export."""
+    return {os.path.basename(p)[: -len("_gtFine_labelIds.png")]: load_png(p)
+            for p in sorted(glob.glob(os.path.join(root_dir, "val", "*", "*.png")))}
+
+
+def compare_maps(got, want, limit, what):
+    """Equal names and segment id sets, pixel mismatch < ``limit`` on each
+    map; returns the worst mismatch."""
+    if sorted(got) != sorted(want):
+        raise SystemExit(f"{what}: frames {sorted(got)} against {sorted(want)}")
+    worst = 0.0
+    for name, m in got.items():
+        if set(np.unique(m)) != set(np.unique(want[name])):
+            raise SystemExit(f"{what}: segment ids differ on {name}")
+        worst = max(worst, float((m != want[name]).mean()))
+    if not worst < limit:
+        raise SystemExit(f"{what}: {worst:.4%} of pixels differ (limit {limit:.2%})")
+    return worst
+
+
+def self_scored_ap(root):
+    """A 1024x2048 gtFine instance map with two thing instances (a car
+    and a person) scored against an export of its own masks: AP 1."""
+    g = np.full((H, W), 7, np.uint16)  # road
+    g[H * 2 // 5 : H * 3 // 5, W // 7 : W // 3] = 26 * 1000
+    g[H // 2 : H * 4 // 5, W * 3 // 5 : W * 2 // 3] = 24 * 1000 + 3
+    name = f"{synthetic.CITY}_000000_000019"
+    gt_dir, pred_dir = os.path.join(root, "ap_gt"), os.path.join(root, "ap_pred")
+    save_png(os.path.join(gt_dir, synthetic.CITY, f"{name}_gtFine_instanceIds.png"), g)
+    lines = []
+    for lid, inst in ((26, 26000), (24, 24003)):
+        save_png(os.path.join(pred_dir, f"{name}_{lid}_0.png"),
+                 (g == inst).astype(np.uint8) * 255)
+        lines.append(f"{name}_{lid}_0.png {lid} 0.900000\n")
+    with open(os.path.join(pred_dir, f"{name}.txt"), "w") as f:
+        f.writelines(lines)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return evaluate_instances.main(["--pred_dir", pred_dir, "--gt_dir", gt_dir])
+
+
+class StagedInputs(torch.nn.Module):
+    """The bg model fed the step's reprojection of labelIds as the staged
+    chain hands it over: converted to trainIds after the splat (the step
+    converts before it, so where the z-buffer's winner is a point the
+    reference marks invalid, label 0, the step reads road and the staged
+    chain labelId 0, void), and the depth encoded ``(d + 1)·256`` into
+    uint16 (``prepare_bg_data``) and decoded as ``BGModel._prep_inputs``
+    decodes it (``/256 - 1``, clamped). Keeps each call's logits."""
+
+    def __init__(self, bg):
+        super().__init__()
+        self.bg, self.logits = bg, []
+        self.register_buffer("lut", torch.as_tensor(id_to_train_id_lut().astype(np.int32)))
+
+    def forward(self, inputs, return_argmax=False):
+        d, mask = inputs["depth"], inputs["depth_mask"]
+        code = torch.where(mask, ((d + 1.0) * 256.0).clamp(0, 65535).floor(), 0.0)
+        dep = code / 256.0 - 1.0
+        keep = dep > 0
+        dep = torch.where(keep, dep.clamp(self.bg.min_depth, self.bg.max_depth), -1.0)
+        seg = self.lut[inputs["seg"].long().clamp(0, 255)]
+        logits = self.bg({"seg": seg, "depth": dep, "depth_mask": keep})
+        self.logits.append(logits)
+        return torch.argmax(logits, 1).to(torch.int32) if return_argmax else logits
+
+
+def staged_input_maps(cfg, store, dev):
+    """{frame: (labelId panoptic map, bg class map, top-2 logit gap, top
+    logit)} of the serving step (``eval/forecast.py``) on each forecast
+    frame's inputs with the segmentations in labelIds, its bg model fed
+    the staged chain's inputs (``StagedInputs``): what the staged chain
+    computes, through the step's own reprojection."""
+    with store_readers(store):
+        cfg, task_data, fg_model = setup(Config(cfg), test=True)
+        fg_model = restore_params(cfg, fg_model)
+        bg_model = StagedInputs(forecast_fused._build_bg(cfg["fused"], dev))
+        pc_ds, pc_idx = forecast_fused._pc_index(cfg["fused"], "val")
+        loader = task_data.loader("val", cfg, test=True)
+    step = build_forecast_step(bg_model.to(dev), fg_model, height=cfg["fused"]["height"],
+                               width=cfg["fused"]["width"], out_t=OUT_T, device=dev)
+    lut = np.arange(256)  # labelIds kept: StagedInputs converts after the splat
+    out = {}
+    for batch in loader:
+        meta = batch["meta"]
+        for i in range(len(meta["city"])):
+            name = (f"{meta['city'][i]}_{meta['seq'][i]}_"
+                    f"{int(meta['target_frame'][i]):06d}")
+            pc_in = forecast_fused._pc_inputs(pc_ds, pc_idx[name], lut)
+            res = step(pc_in, forecast_fused._fg_inputs(batch, i))
+            top2 = torch.topk(bg_model.logits.pop()[0], 2, dim=0).values
+            out[name] = (relabel_panoptic_trainid_to_labelid(
+                res["panoptic"][0].cpu().numpy().astype(np.int64)),
+                res["bg_seg"][0].cpu().numpy(), (top2[0] - top2[1]).cpu().numpy(),
+                top2[0].cpu().numpy())
+    return out
+
+
+def staged_phase(dev, fixtures, card):
+    """Phase 14: the paper's per-stage chain on phase 12's fixture, each
+    CLI with the launch counts set to 0 just before it and read just
+    after: prepare_gt_nofg, prepare_bg_data (3 place_min_fold a pc
+    batch), the bg canvases (1 onehot_stem_conv a bg batch),
+    export_panoptic against phase 12's fused PNGs (equal ids, < 2 %),
+    evaluate_panoptic, export_instances + evaluate_instances (allAp 0,
+    NaN per class: the fixture has no GT instance; a self-scored map AP
+    1), viz_panoptic on one frame; then the chain at 256x512 on the card
+    against the CPU (canvases and panoptic maps: equal ids, < 1e-3)."""
+    ts0 = time.perf_counter()
+    cfg, store, phase12 = fixtures["full"]
+    root = os.path.join(os.path.dirname(cfg["working_dir"]), "staged")
+    out, fg_argv, bg_cfg = staged_chain(cfg, store, root, "cuda")
+    report, prep_launches, _ = out["bg_data"]
+    frames = report["val"]["frames"]
+    pc_cfg = Config(read_yaml(cfg["fused"]["pc_config"]))
+    pc_batches = -(-frames // int(pc_cfg["training"]["batch_size"]))
+    (_, bg_frames, bg_s), bg_launches, _ = out["bg_export"]
+    bg_batches = -(-bg_frames // int(bg_cfg["training"]["batch_size"]))
+    (result_dir, pan_frames, pan_s), pan_launches, _ = out["panoptic"]
+    print(f"[staged] prepare_bg_data: {frames} frames in {pc_batches} pc batches, "
+          f"launches {prep_launches}; bg export: {bg_frames} frames in {bg_batches} "
+          f"batches, launches {bg_launches}; export_panoptic launches {pan_launches}")
+    if (prep_launches["place_min_fold"] != 3 * pc_batches or prep_launches["place_min"]
+            or prep_launches["onehot_stem_conv"]):
+        raise SystemExit(f"prepare_bg_data launched {prep_launches}, not 3 "
+                         f"place_min_fold a pc batch ({pc_batches} batches)")
+    if (bg_launches["onehot_stem_conv"] != bg_batches or bg_launches["place_min"]
+            or bg_launches["place_min_fold"]):
+        raise SystemExit(f"the bg export launched {bg_launches}, not 1 "
+                         f"onehot_stem_conv a bg batch ({bg_batches} batches)")
+    if any(pan_launches.values()):
+        raise SystemExit(f"export_panoptic launched {pan_launches}")
+    blocks = store["arrays"].get(os.path.join(root, "bg_data", "depths_decompressed_val.h5"))
+    if blocks is not None and (len(blocks) != frames or any(
+            b.shape != (H, W, 3) or b.dtype != np.uint16 for b in blocks.values())):
+        raise SystemExit("prepare_bg_data's depth blocks are not (H, W, 3) uint16")
+
+    staged, anns = panoptic_maps(result_dir)
+    # the forecast frames (the json lists them before the backfilled one,
+    # whose canvas differs: phase 12's is the GT's stuff)
+    forecast = {a["image_id"]: staged[a["image_id"]] for a in anns[:pan_frames]}
+    # the staged chain against the serving step on the staged chain's bg
+    # inputs: canvases equal off the bg's near-ties, panoptic maps there
+    # within < 1e-3 (mask threshold flips: fg forwards of 2 scenes
+    # against 1) and the same instance ids. A near-tie: a top-2 logit gap
+    # within 1e-4 of the top logit (the seeded bg's logits reach ~100;
+    # cuDNN sums them in another order at batch 2 than at batch 1)
+    stage_canvases = canvases(os.path.join(cfg["fused"]["bg_dir"], "bg_staged"))
+    sure_share, unsure, pan_gap, tie_gap = 1.0, 0, 0.0, 0.0
+    for name, (pan, bg_seg, gap, top) in staged_input_maps(cfg, store, dev).items():
+        mine, differ = forecast[name], stage_canvases[name] != bg_seg
+        sure = gap > 1e-4 * np.maximum(np.abs(top), 1.0)
+        if (differ & sure).any():
+            raise SystemExit(
+                f"the staged canvas of {name} differs from the step's bg on the "
+                f"staged inputs off near-ties: {int((differ & sure).sum())} pixels, "
+                f"top-2 gaps there up to {float(gap[differ].max()):.4g} at top "
+                f"logits up to {float(np.abs(top[differ]).max()):.4g}")
+        if {k for k in np.unique(mine) if k >= 1000} != {k for k in np.unique(pan) if k >= 1000}:
+            raise SystemExit(f"the staged instances of {name} differ from the step's")
+        sure_share = min(sure_share, float(sure.mean()))
+        unsure += int(differ.sum())
+        tie_gap = max(tie_gap, float(gap[differ].max()) if differ.any() else 0.0)
+        pan_gap = max(pan_gap, float((mine != pan)[sure].mean()))
+    if not (sure_share > 0.99 and pan_gap < 1e-3):
+        raise SystemExit(f"staged against the step on the staged inputs: "
+                         f"{sure_share:.4f} of pixels off near-ties, panoptic "
+                         f"mismatch there {pan_gap:.3e}")
+    # ... and against phase 12's fused CLI, whose bg takes the float depth
+    # and road where no point landed
+    fused = cli_outputs(phase12["cuda"])[0]
+    worst, id_diff = 0.0, {}
+    for name, m in forecast.items():
+        f = fused[name]
+        worst = max(worst, float((m != f).mean()))
+        for k in set(np.unique(m)) ^ set(np.unique(f)):
+            id_diff[f"{name}:{int(k)}"] = [int((m == k).sum()), int((f == k).sum())]
+    things = thing_pixels(forecast)
+    print(f"[staged] {H}x{W}: the staged chain against the step on the staged "
+          f"chain's bg inputs: canvases equal off near-ties ({len(forecast)} frames, >= "
+          f"{sure_share:.4f} of pixels; {unsure} canvas pixels at near-ties differ, "
+          f"top-2 gap <= {tie_gap:.3g}), "
+          f"panoptic mismatch there {pan_gap:.3e}; against the fused "
+          f"CLI: worst mismatch {worst:.4%}, segment ids in one map only (staged, "
+          f"fused pixels) {json.dumps(id_diff)}; {things} instance pixels")
+    if not worst < 0.05:
+        raise SystemExit(f"staged against fused: {worst:.4%} of pixels differ")
+
+    gt_json, gt_dir, _ = gt_split(cfg, os.path.join(root, "gt"))
+    pq_res, pq_s = evaluate(os.path.join(result_dir, f"{os.path.basename(result_dir)}.json"),
+                            os.path.join(result_dir, os.path.basename(result_dir)),
+                            gt_json, gt_dir)
+    pq = {k: pq_res[k]["pq"] for k in ("All", "Things", "Stuff")}
+
+    cs = os.path.join(os.path.dirname(cfg["working_dir"]), "cs")
+    inst_argv = [a if a != "staged" else "staged_instances" for a in fg_argv]
+    with store_readers(store):
+        _, inst_launches, inst_s = counted(export_instances.main, inst_argv)
+    inst_dir = os.path.join(cfg["working_dir"], "staged_instances_val")
+    ts = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ap = evaluate_instances.main(["--pred_dir", inst_dir, "--cityscapes_dir", cs,
+                                      "--split", "val"])
+    ap_s = time.perf_counter() - ts
+    n_gt = len(glob.glob(os.path.join(cs, "gtFine", "val", "*", "*_instanceIds.png")))
+    if ap["allAp"] != 0.0 or not all(np.isnan(v["ap"]) for v in ap["per_class"].values()):
+        raise SystemExit(f"instance AP on a GT with no instance: {ap}")
+    masks = len(glob.glob(os.path.join(inst_dir, "*.png")))
+    self_ap = self_scored_ap(root)
+    if self_ap["allAp"] != 1.0 or self_ap["per_class"]["car"]["ap"] != 1.0:
+        raise SystemExit(f"a self-scored instance map: {self_ap}")
+    print(f"[staged] PQ {json.dumps(pq)} ({pq_s / len(anns):.4f} s per frame); "
+          f"{masks} instance masks, AP allAp 0.0 (no GT instance), "
+          f"{ap_s / n_gt:.4f} s per frame; self-scored map allAp 1.0 | {card}")
+
+    viz_dir = os.path.join(root, "viz")
+    one = os.path.join(root, "one.json")
+    with open(one, "w") as f:
+        json.dump({"annotations": anns[:1]}, f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        viz_panoptic.main(["--annotations", one, "--label_dir",
+                           os.path.join(result_dir, os.path.basename(result_dir)),
+                           "--output_dir", viz_dir])
+    overlay = load_png(os.path.join(viz_dir, anns[0]["image_id"] + "_viz.png"))
+    if overlay.shape != (H, W, 3) or not overlay.any():
+        raise SystemExit(f"viz_panoptic wrote {overlay.shape}")
+
+    small, small_store, _ = fixtures["small"]
+    sroot = os.path.dirname(small["working_dir"])
+    got = {}
+    for platform in ("cuda", "cpu"):
+        run, _, _ = staged_chain(small, small_store, os.path.join(
+            sroot, f"staged_{platform}"), platform, tag=f"_{platform}")
+        got[platform] = (canvases(os.path.join(small["fused"]["bg_dir"],
+                                               f"bg_staged_{platform}")),
+                         panoptic_maps(run["panoptic"][0][0])[0])
+    canvas_gap = compare_maps(got["cuda"][0], got["cpu"][0], 1e-3, "canvases GPU against CPU")
+    pan_gap = compare_maps(got["cuda"][1], got["cpu"][1], 1e-3, "staged GPU against CPU")
+    print(f"[staged] {H_SMALL}x{W_SMALL} GPU against CPU: canvases worst {canvas_gap:.3e}, "
+          f"panoptic worst {pan_gap:.3e}")
+    phase_s = time.perf_counter() - ts0
+    readings = {
+        "prepare_bg_data_ms_per_frame": [ms / frames for ms in report["val"]["predict_ms"]],
+        "prepare_bg_data_s": report["val"]["seconds"],
+        "bg_export_ms_per_frame": bg_s * 1e3 / bg_frames,
+        "export_panoptic_ms_per_frame": pan_s * 1e3 / pan_frames,
+        "export_instances_s": inst_s, "pq": pq, "pq_s_per_frame": pq_s / len(anns),
+        "ap_s_per_frame": ap_s / n_gt, "staged_vs_fused_mismatch": worst,
+        "staged_vs_fused_ids_in_one_map": id_diff, "staged_inputs_sure_share": sure_share,
+        "staged_inputs_near_tie_pixels": unsure, "staged_inputs_tie_gap": tie_gap, "staged_inputs_panoptic_mismatch": pan_gap,
+        "small_canvas_mismatch": canvas_gap, "small_panoptic_mismatch": pan_gap,
+        "launches": {"prepare_bg_data": prep_launches, "bg_export": bg_launches,
+                     "export_panoptic": pan_launches, "export_instances": inst_launches},
+        "pc_batches": pc_batches, "bg_batches": bg_batches, "phase_s": phase_s}
+    print(f"[staged] readings {json.dumps(readings)} | {card}")
+    print(f"[staged] phase 14 took {phase_s:.1f} s")
+    return readings
 
 
 def main() -> int:
@@ -1439,6 +1803,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         cli_launches, cli_readings, fixtures = cli_phase(dev, root)
         score_readings = score_phase(dev, fixtures, card)
+        staged_readings = staged_phase(dev, fixtures, card)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
@@ -1460,6 +1825,7 @@ def main() -> int:
          "layer_earlier_ms": times["layer_earlier"],
          "layer_earlier_device_ms": times["layer_earlier_device"],
          "cli_launches": cli_launches["place_min_fold"],
+         "staged_launches": staged_readings["launches"]["prepare_bg_data"]["place_min_fold"],
          "note": "ms: the kernel (an entry's two targets of a row on two "
                  "lanes of one atomic instruction); earlier_ms: place_min + "
                  "fold_corners, the forecast path before; layer adds the "
@@ -1482,6 +1848,7 @@ def main() -> int:
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": times["k2_lib"],
          "device_ms": times["k2_device"], "earlier_ms": None,
          "cli_launches": cli_launches["onehot_stem_conv"],
+         "staged_launches": staged_readings["launches"]["bg_export"]["onehot_stem_conv"],
          "note": "earlier_ms: the previous kernel is no longer in the tree; "
                  "its time is in PERF.md"},
     ]
@@ -1525,7 +1892,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "cli": {
         k: cli_readings[k] for k in ("frames", "frames_per_s", "median_ms",
                                      "png_decode_ms", "thing_pixels")},
-        "score": score_readings}))
+        "score": score_readings, "staged": staged_readings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

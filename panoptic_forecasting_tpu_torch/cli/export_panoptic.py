@@ -1,29 +1,82 @@
-"""The backfill of the COCO-panoptic export.
+"""Export forecast panoptic segmentations as COCO-panoptic PNGs + json.
 
-Counterpart of ``backfill_missing`` in
-``panoptic_forecasting_tpu/cli/export_panoptic.py`` (:89-135; reference
-experiments/export_cityscapes_panoptic_results.py:124-168): every gt
-frame the export did not forecast gets the bg canvas (or zeros), so the
-PQ tool sees every frame. The staged export itself (``export_split``,
-through ``eval/fusion.py``) is not ported yet.
+Counterpart of ``panoptic_forecasting_tpu/cli/export_panoptic.py``
+(reference experiments/export_cityscapes_panoptic_results.py): per target
+frame ``{city}_{seq}_{frame:06d}_pred_panoptic.png`` (labelId-space ids,
+base-256 RGB; trainId space with ``no_convert``) from
+``eval/fusion.py::predict_panoptic`` over the scene's bg canvas
+(``data.background_dir``), the COCO annotations in ``{export_name}.json``,
+and the gt frames the scene dataset skipped backfilled with their bg
+canvas (or zeros) against the gtFine listing.
+
+Layout: ``working_dir/{export_name|exported_panoptics}_{split}/`` holding
+the json and a directory of the same name with the PNGs. The fg weights
+come as in ``cli/common.py::restore_params``. It runs on ``cuda`` and
+raises without it, unless ``platform`` is ``cpu``.
+
+Usage:
+    python -m panoptic_forecasting_tpu_torch.cli.export_panoptic \\
+        --working_dir DIR --config_file cfg.yaml [--set export_name NAME] \\
+        [--set no_convert true] [--set platform cpu]
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
+import sys
 
 import numpy as np
 
+from ..core.config import load_config
 from ..data.io import load_png
+from ..eval import fusion
 from ..eval.panoptic_protocol import (
     relabel_panoptic_trainid_to_labelid,
     segments_info_from_labelid_seg,
     write_panoptic_png,
 )
-from .common import export_writer
+from .common import export_writer, restore_params, setup
 
-IMG_H, IMG_W = 1024, 2048  # Cityscapes frames (the JAX eval/fusion.py's)
+
+def export_split(model, task_data, split, cfg) -> str:
+    """Fuse and write every frame of ``split``; returns the result dir."""
+    export_name = f"{cfg.get('export_name') or 'exported_panoptics'}_{split}"
+    result_dir = os.path.join(cfg["working_dir"], export_name)
+    seg_dir = os.path.join(result_dir, export_name)
+    os.makedirs(seg_dir, exist_ok=True)
+    no_convert = bool(cfg.get("no_convert"))
+
+    annotations = []
+    exported = set()
+    # PNG encode + write overlaps the next batch's device work
+    with export_writer(cfg) as w:
+        for batch in task_data.loader(split, cfg, test=True):
+            segs = fusion.predict_panoptic(model, batch)["seg"]
+            meta = batch["meta"]
+            for i in range(len(segs)):
+                name = (f"{meta['city'][i]}_{meta['seq'][i]}_"
+                        f"{int(meta['target_frame'][i]):06d}")
+                # a copy: a batch view would pin the batch in the queue
+                seg = (segs[i].copy() if no_convert
+                       else relabel_panoptic_trainid_to_labelid(segs[i]))
+                file_name = f"{name}_pred_panoptic.png"
+                w.submit(write_panoptic_png, os.path.join(seg_dir, file_name), seg)
+                annotations.append({
+                    "image_id": name,
+                    "file_name": file_name,
+                    "segments_info": segments_info_from_labelid_seg(seg),
+                })
+                exported.add(name)
+
+    backfill_missing(cfg, split, seg_dir, exported, annotations)
+
+    with open(os.path.join(result_dir, f"{export_name}.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"annotations": annotations}, f, ensure_ascii=False, indent=4)
+    print(f"[{split}] exported {len(exported)} frames -> {seg_dir}")
+    return result_dir
 
 
 def backfill_missing(cfg, split, seg_dir, exported, annotations):
@@ -57,7 +110,7 @@ def backfill_missing(cfg, split, seg_dir, exported, annotations):
                         load_png(bg_path).astype(np.int64)
                     )
             if seg is None:
-                seg = np.zeros((IMG_H, IMG_W), np.int64)
+                seg = np.zeros((fusion.IMG_H, fusion.IMG_W), np.int64)
             file_name = f"{name}_pred_panoptic.png"
             w.submit(
                 write_panoptic_png, os.path.join(seg_dir, file_name), seg
@@ -68,3 +121,14 @@ def backfill_missing(cfg, split, seg_dir, exported, annotations):
                 "segments_info": segments_info_from_labelid_seg(seg),
             })
     print("NUM MISSING:", count)
+
+
+def main(argv=None) -> None:
+    cfg, task_data, model = setup(load_config(argv), test=True)
+    model = restore_params(cfg, model)
+    for split in task_data.datasets:
+        export_split(model, task_data, split, cfg)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

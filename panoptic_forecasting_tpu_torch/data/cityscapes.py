@@ -63,6 +63,10 @@ LABELS: List[Label] = [
     _L("license plate",       -1, -1,  "vehicle",      False, True,  (0, 0, 142)),
 ]
 
+NUM_TRAIN_CLASSES = 19
+NUM_STUFF_CLASSES = 11   # trainIds 0..10
+NUM_THING_CLASSES = 8    # trainIds 11..18
+
 # trainId -> labelId for the 19 evaluated classes (+255 -> 0 "unlabeled").
 TRAIN_ID_TO_ID: Dict[int, int] = {
     l.train_id: l.id for l in LABELS if l.train_id not in (255, -1)
@@ -90,3 +94,12 @@ def id_to_train_id_lut() -> np.ndarray:
         if 0 <= i < 256:
             lut[i] = t if t != -1 else 255
     return lut
+
+
+def train_id_color_palette() -> np.ndarray:
+    """(256, 3) uint8 palette indexed by trainId (255 -> black)."""
+    pal = np.zeros((256, 3), dtype=np.uint8)
+    for l in LABELS:
+        if l.train_id not in (255, -1):
+            pal[l.train_id] = l.color
+    return pal

@@ -8,8 +8,8 @@ disparity encoding). PNG goes through the port's own codec
 
 Every reader of a pandas table goes through ``read_table``, every reader
 of an HDF5 file through ``open_h5`` and every writer of one through
-``write_h5``: the one place each format's package (pandas, h5py) is
-imported for each.
+``write_h5`` (a whole file) or ``append_h5`` (keys of a file): the one
+place each format's package (pandas, h5py) is imported for each.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .png import decode_png, encode_png
+from .png import FILTER_NONE, decode_png, encode_png
 
 
 def read_json_file(path: str) -> dict:
@@ -52,6 +52,22 @@ def write_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
             h5.create_dataset(key, data=arr)
 
 
+def append_h5(path: str, arrays: Dict[str, np.ndarray],
+              compression: Optional[str] = None) -> None:
+    """Write ``{key: array}`` into the HDF5 file at ``path`` (made if it
+    is missing), each key created or, if there, replaced; the file's
+    other keys stay. ``compression`` is h5py's (e.g. ``gzip``)."""
+    import h5py
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    kw = {} if compression is None else {"compression": compression}
+    with h5py.File(path, "a") as h5:
+        for key, arr in arrays.items():
+            if key in h5:
+                del h5[key]
+            h5.create_dataset(key, data=arr, **kw)
+
+
 def load_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_png(f.read())
@@ -62,14 +78,19 @@ def load_png_batch(paths) -> np.ndarray:
     return np.stack([load_png(p) for p in paths])
 
 
-# PNG write profile of id/label maps and masks (the JAX package's
-# PNG_IDS): zlib level 1 (save_png writes every row unfiltered).
-PNG_IDS = {"compress_level": 1}
+# PNG write profiles (the JAX package's): id/label maps and masks with
+# every row unfiltered at zlib level 1; 16-bit depth and disparity with
+# libpng's per-row filter choice at level 1.
+PNG_IDS = {"compress_level": 1, "filter_type": FILTER_NONE}
+PNG_SMOOTH16 = {"compress_level": 1}
 
 
-def save_png(path: str, arr: np.ndarray, compress_level: int = 6) -> None:
+def save_png(path: str, arr: np.ndarray, compress_level: int = 6,
+             filter_type: Optional[int] = None) -> None:
+    """Write ``arr`` as PNG: each row filtered with ``filter_type``, or by
+    default with the filter libpng would pick (``png.encode_png``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    data = encode_png(arr, compress_level)
+    data = encode_png(arr, compress_level, filter_type)
     with open(path, "wb") as f:
         f.write(data)
 
@@ -197,6 +218,17 @@ def encode_depth_png(depth: np.ndarray) -> np.ndarray:
     """
     enc = (np.clip(depth + 1.0, 0.0, 255.0) * 256.0).round()
     return enc.astype(np.uint16)
+
+
+def encode_disparity_from_depth(depth: np.ndarray,
+                                disp_factor: float) -> np.ndarray:
+    """Depth -> uint16 disparity PNG payload as the reference exports it:
+    ``clamp(disp_factor / depth, 0, 255)·256`` for depth >= 0, else 0
+    (export_cityscapes_segmentation_results.py:111-118)."""
+    out = np.zeros_like(depth, dtype=np.float32)
+    pos = depth >= 0
+    out[pos] = np.clip(disp_factor / np.maximum(depth[pos], 1e-6), 0, 255) * 256.0
+    return out.round().astype(np.uint16)
 
 
 def decode_depth_png(png: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -3,9 +3,9 @@
 Counterpart of ``panoptic_forecasting_tpu/data/pipelines.py`` (reference
 ``data/__init__.py:14-31``): each builder returns a ``TaskData`` bundle of
 split datasets and the DataCard handed to the model builder. Ported
-tasks: ``odom``, ``pc_transform``, ``bg`` (its serving card only,
-``bg_data.py``) and ``fg`` with ``dataset_type: fg_scene``; the
-fg-instance (training) dataset is not ported yet and raises.
+tasks: ``odom``, ``pc_transform``, ``bg`` (test mode, ``bg_data.py``)
+and ``fg`` with ``dataset_type: fg_scene``; the fg-instance (training)
+dataset is not ported yet and raises.
 """
 
 from __future__ import annotations

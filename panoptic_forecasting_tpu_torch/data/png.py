@@ -16,14 +16,17 @@ two diagonals before it, so each diagonal is one vectorised step
 (H + W - 1 steps in all).
 
 Encoding writes one filter type on every row (None by default: the
-JAX package's ``PNG_IDS`` profile for id maps, ``data/io.py:60-66``).
+JAX package's ``PNG_IDS`` profile for id maps, ``data/io.py:60-66``), or
+picks each row's filter as libpng does. It writes the bytes libpng
+writes for the same image and settings (deflate parameters, window size,
+IDAT chunks), so the port's files equal the JAX package's.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -163,10 +166,64 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
+def _adaptive(x: np.ndarray, bpp: int, width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """libpng's per-row choice among the filters: the least sum of the
+    filtered bytes read as signed magnitudes, the first on a tie. As in
+    libpng, a one-row image drops Up, Average and Paeth, a one-column
+    image Sub, Average and Paeth. Returns (filter kind per row, rows)."""
+    h = x.shape[0]
+    kinds = [FILTER_NONE, FILTER_SUB, FILTER_UP, FILTER_AVERAGE, FILTER_PAETH]
+    if h == 1:
+        kinds = [k for k in kinds if k not in (FILTER_UP, FILTER_AVERAGE, FILTER_PAETH)]
+    if width == 1:
+        kinds = [k for k in kinds if k not in (FILTER_SUB, FILTER_AVERAGE, FILTER_PAETH)]
+    cands = np.stack([_filter(x, k, bpp) for k in kinds])  # (K, H, S)
+    mag = np.minimum(cands, 256 - cands.astype(np.int32))
+    pick = np.argmin(mag.sum(axis=2, dtype=np.int64), axis=0)
+    return np.asarray(kinds, np.uint8)[pick], cands[pick, np.arange(h)]
+
+
+def _zlib_stream(body: bytes, level: int, strategy: int) -> bytes:
+    """The zlib stream libpng writes for ``body``: its deflate settings,
+    and for a small image the smallest window that holds it (libpng's
+    ``png_deflate_claim`` and ``optimize_cmf``)."""
+    n = len(body)
+    wbits = 15
+    if n <= 16384:
+        half = 1 << (wbits - 1)
+        while n + 262 <= half:
+            half >>= 1
+            wbits -= 1
+        wbits = max(wbits, 9)  # zlib rejects a window of 8 bits
+    z = zlib.compressobj(level, zlib.DEFLATED, wbits, 8, strategy)
+    out = bytearray(z.compress(body) + z.flush())
+    cmf = out[0]
+    if n <= 16384 and (cmf & 0x0F) == 8 and (cmf & 0xF0) <= 0x70:
+        cinfo = cmf >> 4
+        half = 1 << (cinfo + 7)
+        if n <= half:
+            while True:
+                half >>= 1
+                cinfo -= 1
+                if not (cinfo > 0 and n <= half):
+                    break
+            cmf = (cmf & 0x0F) | (cinfo << 4)
+            flg = out[1] & 0xE0
+            flg += 0x1F - ((cmf << 8) + flg) % 0x1F
+            out[0], out[1] = cmf, flg
+    return bytes(out)
+
+
+IDAT_SIZE = 8192  # libpng's PNG_ZBUF_SIZE: it writes IDAT chunks this long
+
+
 def encode_png(arr: np.ndarray, compress_level: int = 6,
-               filter_type: int = FILTER_NONE) -> bytes:
+               filter_type: Optional[int] = FILTER_NONE) -> bytes:
     """(H, W) or (H, W, C) uint8/uint16 array -> PNG bytes, every row
-    filtered with ``filter_type``."""
+    filtered with ``filter_type``, or with ``None`` the filter libpng
+    picks for each row. The bytes are what libpng (the JAX package's
+    native writer) writes for the same settings: its deflate parameters,
+    window and IDAT chunking."""
     arr = np.asarray(arr)
     if arr.dtype == np.bool_:
         arr = arr.astype(np.uint8)
@@ -179,11 +236,17 @@ def encode_png(arr: np.ndarray, compress_level: int = 6,
     depth = 8 * arr.dtype.itemsize
     bpp = ch * arr.dtype.itemsize
     pix = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder(">"))
-    rows = _filter(pix.view(np.uint8).reshape(h, w * bpp), filter_type, bpp)
+    raw = pix.view(np.uint8).reshape(h, w * bpp)
     body = np.empty((h, w * bpp + 1), np.uint8)
-    body[:, 0] = filter_type
-    body[:, 1:] = rows
+    if filter_type is None and (h > 1 or w > 1):
+        body[:, 0], body[:, 1:] = _adaptive(raw, bpp, w)
+    else:
+        filter_type = FILTER_NONE if filter_type is None else filter_type
+        body[:, 0] = filter_type
+        body[:, 1:] = _filter(raw, filter_type, bpp)
+    strategy = zlib.Z_DEFAULT_STRATEGY if filter_type == FILTER_NONE else zlib.Z_FILTERED
+    stream = _zlib_stream(body.tobytes(), compress_level, strategy)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, COLOR_TYPE[ch], 0, 0, 0)
-    return (SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(body.tobytes(), compress_level))
-            + _chunk(b"IEND", b""))
+    idat = b"".join(_chunk(b"IDAT", stream[i:i + IDAT_SIZE])
+                    for i in range(0, len(stream), IDAT_SIZE))
+    return SIGNATURE + _chunk(b"IHDR", ihdr) + idat + _chunk(b"IEND", b"")

@@ -7,7 +7,8 @@ low-rank ROI features), writing only what the port's readers open:
 * ``write_cityscapes_fixture``: camera, timestamp and vehicle files of
   all 30 frames of each snippet; disparity and ``pred_mask`` seg PNGs of
   the three input frames of target 19 (``gap_len``); the annotated
-  frame's ``gtFine`` labelIds and instanceIds PNGs; ``{split}_3d_info.pkl``;
+  frame's ``gtFine`` labelIds, labelTrainIds and instanceIds PNGs;
+  ``{split}_3d_info.pkl``;
 * ``write_fg_fixture``: the scene tables, depth tables, ROI feature h5
   and ``{split}_3d_info.pkl`` of the fg-scene dataset;
 * ``write_odom_predictions``: a predicted-odometry h5 (speed, yaw rate
@@ -21,8 +22,8 @@ feature/odometry files HDF5; each writer also returns them in memory
 where its package (pandas, h5py) imports. On a machine without one of
 them, ``readers_from_store`` serves that format's reader function
 (``io.read_table``, ``io.open_h5``) from the returned store, and takes
-the h5 writes (``io.write_h5``) into it, so the datasets, the exports
-and everything after them run unchanged.
+the h5 writes (``io.write_h5``, ``io.append_h5``) into it, so the
+datasets, the exports and everything after them run unchanged.
 """
 
 from __future__ import annotations
@@ -213,6 +214,8 @@ def write_cityscapes_fixture(
         name = f"{CITY}_{seq}_{frame:06d}"
         gt = os.path.join(root, "gtFine", split, CITY, name)
         save_png(f"{gt}_gtFine_labelIds.png", lut[segs[19]], **PNG_IDS)
+        save_png(f"{gt}_gtFine_labelTrainIds.png", segs[19].astype(np.uint8),
+                 **PNG_IDS)
         # instanceIds: the stuff scene's labelIds (no thing instances), the
         # PQ evaluator's GT
         save_png(f"{gt}_gtFine_instanceIds.png",
@@ -349,9 +352,9 @@ def readers_from_store(store: Dict[str, Any], tables: bool = True,
                        arrays: bool = True):
     """Within the block, ``io.read_table`` (``tables``) and ``io.open_h5``
     (``arrays``) answer the paths ``store`` holds from memory; other paths
-    still go to the files. With ``arrays``, ``io.write_h5`` writes into
-    ``store`` and not to a file."""
-    saved = io.read_table, io.open_h5, io.write_h5
+    still go to the files. With ``arrays``, ``io.write_h5`` and
+    ``io.append_h5`` write into ``store`` and not to a file."""
+    saved = io.read_table, io.open_h5, io.write_h5, io.append_h5
 
     def read_table(path):
         rows = store["tables"].get(path)
@@ -364,11 +367,14 @@ def readers_from_store(store: Dict[str, Any], tables: bool = True,
     def write_h5(path, data):
         store["arrays"][path] = dict(data)
 
+    def append_h5(path, data, compression=None):
+        store["arrays"].setdefault(path, {}).update(data)
+
     if tables:
         io.read_table = read_table
     if arrays:
-        io.open_h5, io.write_h5 = open_h5, write_h5
+        io.open_h5, io.write_h5, io.append_h5 = open_h5, write_h5, append_h5
     try:
         yield store
     finally:
-        io.read_table, io.open_h5, io.write_h5 = saved
+        io.read_table, io.open_h5, io.write_h5, io.append_h5 = saved

@@ -5,7 +5,8 @@ Counterpart of ``panoptic_forecasting_tpu/kernels/mask_paste.py``
 False)`` over the image grid per instance). Bilinear resampling on an
 axis-aligned grid is separable: ``out = Wy @ mask @ Wxᵀ`` with hat-
 function weights, batched over instances as two ``bmm``s (a plain
-product, left to PyTorch as the JAX code leaves it to XLA).
+product, left to PyTorch as the JAX code leaves it to XLA). The
+composite runs over a batch of scenes at once.
 """
 
 from __future__ import annotations
@@ -55,12 +56,30 @@ def paste_and_composite(masks, bboxes_ulbr, depths, ids, valid, bg_labels,
     ids (N,) int32; valid (N,) bool; bg_labels (H, W) int32; bg_depth
     (H, W) f32. Returns (label_canvas (H, W) int32, depth_canvas (H, W)).
     """
-    pasted = paste_masks_bilinear(masks, bboxes_ulbr, img_h=img_h, img_w=img_w)
+    label_c, depth_c = paste_and_composite_scenes(
+        masks[None], bboxes_ulbr[None], depths[None], ids[None], valid[None],
+        bg_labels[None], bg_depth[None], img_h=img_h, img_w=img_w,
+        threshold=threshold, use_depth=use_depth)
+    return label_c[0], depth_c[0]
+
+
+def paste_and_composite_scenes(masks, bboxes_ulbr, depths, ids, valid,
+                               bg_labels, bg_depth, *, img_h: int, img_w: int,
+                               threshold: float = 0.5, use_depth: bool = True):
+    """``paste_and_composite`` of S scenes at once (the JAX package vmaps
+    it over scenes, ``eval/fusion.py``): masks (S, N, Hm, Wm), boxes
+    (S, N, 4), depths/ids/valid (S, N), bg_labels/bg_depth (S, H, W).
+    Returns (S, H, W) label and depth canvases."""
+    s, n, mh, mw = masks.shape
+    pasted = paste_masks_bilinear(
+        masks.reshape(s * n, mh, mw), bboxes_ulbr.reshape(s * n, 4),
+        img_h=img_h, img_w=img_w).reshape(s, n, img_h, img_w)
     label_c, depth_c = bg_labels, bg_depth
-    for k in range(masks.shape[0]):
-        write = (pasted[k] >= threshold) & valid[k]
+    for k in range(n):
+        write = (pasted[:, k] >= threshold) & valid[:, k, None, None]
         if use_depth:
-            write = write & (depths[k] < depth_c)
-            depth_c = torch.where(write, depths[k], depth_c)
-        label_c = torch.where(write, ids[k], label_c)
+            d = depths[:, k, None, None]
+            write = write & (d < depth_c)
+            depth_c = torch.where(write, d, depth_c)
+        label_c = torch.where(write, ids[:, k, None, None], label_c)
     return label_c, depth_c

@@ -9,7 +9,8 @@ Two routes, as in the JAX package: the unfolded model runs the eval-mode
 BN graph on the assembled input; the folded model (``maybe_fold``, the
 serving default) computes the assembly and the first conv in one fused
 step, ``kernels/stem.py::onehot_stem_conv`` (K2 on the GPU), and runs the
-rest of the network from its output.
+rest of the network from its output. ``predict`` gives the class map the
+bg export writes.
 
 The JAX config keys ``packed_stem``/``packed_levels``/``stem_kernel``
 select TPU layouts of the same graph and are accepted and ignored. Every
@@ -127,3 +128,8 @@ class BGModel(nn.Module):
             )
             return self.model(y0.permute(0, 3, 1, 2), skip_stem0=True, **kw)
         return self.model(self._assemble(seg, depth, dmask), **kw)
+
+    def predict(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """{"seg": (B, H', W') class map}: the argmax at ``final_size``
+        (or the input size) of ``batch["inputs"]`` (JAX ``predict``)."""
+        return {"seg": self(batch["inputs"], return_argmax=True)}

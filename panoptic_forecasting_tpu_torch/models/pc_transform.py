@@ -15,36 +15,118 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.zbuffer import zbuffer_splat
 
 
-def _inv(a: torch.Tensor) -> torch.Tensor:
-    """Inverse by LU with partial pivoting and two triangular solves, the
-    LAPACK getrf + getrs route the JAX package's ``jnp.linalg.inv`` takes
-    on the CPU (``torch.linalg.inv`` rounds some entries differently)."""
-    p, lower, upper = torch.linalg.lu(a)
-    eye = torch.eye(a.shape[-1], dtype=a.dtype).expand_as(a)
-    y = torch.linalg.solve_triangular(lower, p.mT @ eye, upper=False,
-                                      unitriangular=True)
-    return torch.linalg.solve_triangular(upper, y, upper=True)
+def _f32(x):
+    """Round to f32, held in float64 (products of two f32 are exact
+    there, so ``_f32(a - b * c)`` is a fused multiply-add)."""
+    return np.asarray(x).astype(np.float32).astype(np.float64)
+
+
+def _lu_factor(a: np.ndarray):
+    """LU with partial pivoting of one (n, n) matrix, with the rounding of
+    the LAPACK getrf the JAX package's inverse calls on the CPU (a
+    left-looking column sweep: each column's U part by reversed dot
+    products, its L part by forward dot products, both accumulated with
+    fused multiply-adds, then scaled by the f32 reciprocal of the pivot).
+    Returns (lu, pivots)."""
+    a = _f32(a).copy()
+    n = a.shape[0]
+    piv = []
+
+    def dot(x, y):
+        acc = _f32(x[0] * y[0])
+        for xi, yi in zip(x[1:], y[1:]):
+            acc = _f32(acc + xi * yi)
+        return acc
+
+    for j in range(n):
+        b = a[:, j].copy()
+        for i, p in enumerate(piv):
+            b[i], b[p] = b[p], b[i]
+        for i in range(1, j):
+            b[i] = _f32(b[i] - dot(a[i, :i][::-1], b[:i][::-1]))
+        if j:
+            for i in range(j, n):
+                b[i] = _f32(b[i] - dot(a[i, :j], b[:j]))
+        p = j + int(np.argmax(np.abs(b[j:])))
+        piv.append(p)
+        if b[p] != 0:
+            if p != j:
+                a[[j, p], :j] = a[[p, j], :j]
+                b[j], b[p] = b[p], b[j]
+            b[j + 1:] = _f32(b[j + 1:] * _f32(1.0 / b[j]))
+        a[:, j] = b
+    return a, piv
+
+
+def _inv(a: np.ndarray) -> np.ndarray:
+    """(..., n, n) inverses with the rounding of the JAX package's
+    ``jnp.linalg.inv`` on the CPU: ``_lu_factor``, then the two triangular
+    solves of getrs column-wise as LAPACK's trsm does them (each update a
+    fused multiply-add, each division a multiply by the f32 reciprocal of
+    the pivot). f32 values held in float64."""
+    flat = np.asarray(a, np.float64).reshape((-1,) + a.shape[-2:])
+    n = a.shape[-1]
+    out = np.empty_like(flat)
+    for m, mat in enumerate(flat):
+        lu, piv = _lu_factor(mat)
+        perm = list(range(n))
+        for i, p in enumerate(piv):
+            perm[i], perm[p] = perm[p], perm[i]
+        x = np.eye(n)[perm]  # P^T I
+        for k in range(n):  # L y = P^T I, L unit lower
+            for i in range(k + 1, n):
+                x[i] = _f32(x[i] - x[k] * lu[i, k])
+        for k in range(n - 1, -1, -1):  # U x = y
+            x[k] = _f32(x[k] * _f32(1.0 / lu[k, k]))
+            for i in range(k):
+                x[i] = _f32(x[i] - x[k] * lu[i, k])
+        out[m] = x
+    return out.reshape(a.shape)
+
+
+def _matmul(a: np.ndarray, b: np.ndarray, fused: bool) -> np.ndarray:
+    """f32 matrix product with the rounding of the JAX package's jitted
+    einsums on the CPU (HIGHEST-precision dots). XLA sums the (4, 4)
+    chain's four products pairwise, each rounded, ((p0 + p1) + (p2 +
+    p3)), and R·K⁻¹'s three in order with fused multiply-adds
+    (``fused``)."""
+    terms = [a[..., :, k, None] * b[..., k, None, :] for k in range(a.shape[-1])]
+    if fused:
+        acc = _f32(terms[0])
+        for t in terms[1:]:
+            acc = _f32(acc + t)
+        return acc
+    terms = [_f32(t) for t in terms]
+    while len(terms) > 1:
+        terms = [_f32(terms[i] + terms[i + 1]) if i + 1 < len(terms) else terms[i]
+                 for i in range(0, len(terms), 2)]
+    return terms[0]
 
 
 def _camera_maps(K, extrinsics, target_T):
     """Per (batch, frame): B = R·K⁻¹ (B, T, 3, 3) and trans (B, T, 3) of
-    A = E⁻¹·target_T·E, computed on the host in f32.
+    A = E⁻¹·target_T·E, computed on the host in f32 with the rounding of
+    the JAX package's jitted chain on the CPU (``_inv``, ``_matmul``; the
+    contraction order (E⁻¹·target_T)·E of its ``einsum``).
 
     The chain is tiny, and computing it in one place makes the GPU and
-    the CPU reproject bit-identically: scenes with a pure translation put
-    many points exactly on integer pixel coordinates, where the last bit
-    decides whether a point splats to one column or two.
+    the CPU reproject bit-identically: the last bit of a projected point
+    decides whether it splats to one column or two, and which truncated
+    depth its z-buffer key holds.
     """
-    K, E, T = (x.detach().to("cpu", torch.float32) for x in (K, extrinsics, target_T))
-    A = torch.einsum("bij,btjk,bkl->btil", _inv(E), T, E)
-    Bm = torch.einsum("btij,bjk->btik", A[..., :3, :3], _inv(K))
-    return Bm, A[..., :3, 3]
+    K, E, T = (_f32(torch.as_tensor(x).detach().to("cpu", torch.float32).numpy())
+               for x in (K, extrinsics, target_T))
+    A = _matmul(_matmul(_inv(E)[:, None], T, fused=False), E[:, None], fused=False)
+    Bm = _matmul(A[..., :3, :3], _inv(K)[:, None], fused=True)
+    return (torch.from_numpy(Bm.astype(np.float32)),
+            torch.from_numpy(A[..., :3, 3].astype(np.float32)))
 
 
 def _fma(a, b, c):

@@ -119,3 +119,35 @@ def pc_scene(rng, b, t, h, w, rotated=False):
         E[:, :3, :3] = (E[:, :3, :3].astype(np.float64) @ tilt).astype(np.float32)
         Ts[..., :3, 3] += (rng.randn(b, t, 3) * 0.3).astype(np.float32)
     return seg, depth, depth_mask, np.tile(K[None], (b, 1, 1)), E, Ts
+
+
+def jit_jax_models(mp):
+    """Patch (on the MonkeyPatch ``mp``) the JAX bg and fg models so their
+    CLIs run jitted on the CPU: ``init`` of both (the CLIs initialise
+    eagerly, op by op, before restoring a checkpoint), the bg ``predict``
+    and the fg ``forward`` (eager in the JAX export CLIs; minutes for
+    HarDNet on the CPU). Jitted, the structure and values are the same."""
+    from panoptic_forecasting_tpu.models.bg import BGModel as JaxBGModel
+    from panoptic_forecasting_tpu.models.fg import FGModel as JaxFGModel
+
+    def bg_init(self, rng, batch, _orig=JaxBGModel.init):
+        return jax.jit(lambda r, x: _orig(self, r, {"inputs": x}))(rng, batch["inputs"])
+
+    def fg_init(self, rng, batch, _orig=JaxFGModel.init):
+        return jax.jit(lambda r: _orig(self, r, batch))(rng)
+
+    def bg_predict(self, variables, batch, _orig=JaxBGModel.predict):
+        if "_jit_predict" not in self.__dict__:
+            self._jit_predict = jax.jit(lambda v, x: _orig(self, v, {"inputs": x}))
+        return self._jit_predict(variables, batch["inputs"])
+
+    def fg_forward(self, variables, inputs, out_t, _orig=JaxFGModel.forward):
+        cache = self.__dict__.setdefault("_jit_forward", {})
+        if out_t not in cache:
+            cache[out_t] = jax.jit(lambda v, x: _orig(self, v, x, out_t))
+        return cache[out_t](variables, inputs)
+
+    mp.setattr(JaxBGModel, "init", bg_init)
+    mp.setattr(JaxFGModel, "init", fg_init)
+    mp.setattr(JaxBGModel, "predict", bg_predict)
+    mp.setattr(JaxFGModel, "forward", fg_forward)

@@ -125,6 +125,35 @@ def test_png_written_reads_in_pillow(filter_type):
             np.testing.assert_array_equal(np.array(Image.open(io.BytesIO(data))), arr)
 
 
+@pytest.mark.parametrize("profile", ["ids", "smooth16", "default"])
+def test_png_writes_libpngs_bytes(tmp_path, profile):
+    """``save_png`` writes, byte for byte, the file the JAX package's
+    native libpng writer writes for each of its profiles (unfiltered
+    level 1, adaptive level 1, adaptive level 6): small images (the
+    smaller deflate window), images past one 8192-byte IDAT, one-row and
+    one-column images, smooth 16-bit depth, every channel count."""
+    from panoptic_forecasting_tpu import native
+    from panoptic_forecasting_tpu.data import io as jax_io
+    from panoptic_forecasting_tpu_torch.data import io as port_io
+
+    if not native.available():
+        pytest.skip("the JAX package's libpng writer is not built here")
+    kw = {"ids": (jax_io.PNG_IDS, port_io.PNG_IDS),
+          "smooth16": (jax_io.PNG_SMOOTH16, port_io.PNG_SMOOTH16),
+          "default": ({}, {})}[profile]
+    yy, xx = np.mgrid[:96, :160]
+    smooth = ((np.sin(xx / 17.0) + np.cos(yy / 11.0)) * 15000 + 32000).astype(np.uint16)
+    arrays = [_image(k, 3) for k in KINDS] + [
+        smooth, smooth[:1], smooth[:, :1], _image("gray8", 4)[:1, :7],
+        np.random.RandomState(5).randint(0, 12, (256, 512)).astype(np.uint8)]
+    for i, arr in enumerate(arrays):
+        jax_io.save_png(str(tmp_path / f"j{i}.png"), arr, **kw[0])
+        port_io.save_png(str(tmp_path / f"p{i}.png"), arr, **kw[1])
+        want = (tmp_path / f"j{i}.png").read_bytes()
+        assert (tmp_path / f"p{i}.png").read_bytes() == want, (i, arr.shape, arr.dtype)
+        np.testing.assert_array_equal(png.decode_png(want), arr)
+
+
 def test_png_rejects_unsupported_files():
     buf = io.BytesIO()
     Image.fromarray(_image("gray8")).convert("P").save(buf, format="PNG")

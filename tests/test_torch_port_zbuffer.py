@@ -261,3 +261,46 @@ def test_geometry_matches_jax():
         bbox_cwh_to_ulbr(torch.from_numpy(boxes)).numpy(),
         np.asarray(jax_cwh_to_ulbr(jnp.asarray(boxes))),
     )
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_camera_chain_rounds_as_jax(seed):
+    """The host 4x4 chain (E⁻¹·target_T·E, then R·K⁻¹) is bit-equal to
+    the JAX package's jitted chain on the CPU, for tilted and yawed
+    Cityscapes-like cameras and random ego motion; so is the 4x4
+    inverse for general matrices (LAPACK getrf + getrs rounding)."""
+    import jax
+    from panoptic_forecasting_tpu.models import pc_transform as jax_pc
+
+    from panoptic_forecasting_tpu_torch.models.pc_transform import _camera_maps, _inv
+
+    rng = np.random.RandomState(seed)
+    b, t = 2, 3
+    K = np.tile(np.array([[2262.52, 0, 1096.98], [0, 2265.30, 513.137], [0, 0, 1]],
+                         np.float32)[None], (b, 1, 1)) * rng.uniform(0.1, 1, (b, 1, 1))
+    K[:, 2, 2] = 1
+    E = np.tile(np.eye(4, dtype=np.float32)[None], (b, 1, 1))
+    for i in range(b):
+        a, c = rng.randn(3) * 0.05, rng.randn(3)
+        cx, sx, cy, sy, cz, sz = np.cos(a[0]), np.sin(a[0]), np.cos(a[1]), np.sin(a[1]), np.cos(a[2]), np.sin(a[2])
+        R = (np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+             @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+             @ np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]]))
+        E[i, :3, :3], E[i, :3, 3] = R @ rdf_T_flu()[:3, :3], c
+    T = np.stack([np.stack([np.asarray(unicycle_now_T_prev(
+        np.float32(rng.uniform(2, 12)), np.float32(rng.randn() * 0.05),
+        float(rng.uniform(0.1, 0.6))).numpy()) for _ in range(t)]) for _ in range(b)])
+    K, E, T = (x.astype(np.float32) for x in (K, E, T))
+
+    def chain(K, E, T):
+        A = jnp.einsum("ij,tjk,kl->til", jnp.linalg.inv(E), T, E, precision=jax_pc._HP)
+        B = jnp.einsum("tij,jk->tik", A[:, :3, :3], jnp.linalg.inv(K), precision=jax_pc._HP)
+        return B, A[:, :3, 3]
+
+    jB, jt = jax.jit(jax.vmap(chain))(K, E, T)
+    B, tr = _camera_maps(torch.from_numpy(K), torch.from_numpy(E), torch.from_numpy(T))
+    np.testing.assert_array_equal(B.numpy(), np.asarray(jB))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jt))
+    general = (rng.randn(16, 4, 4) * np.exp(rng.randn(16, 4, 4))).astype(np.float32)
+    np.testing.assert_array_equal(_inv(general).astype(np.float32),
+                                  np.asarray(jax.jit(jax.vmap(jnp.linalg.inv))(general)))
