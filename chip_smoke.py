@@ -112,8 +112,10 @@ Phases (any failure exits non-zero):
      place_min never. The canvases equal, off the bg's near-ties, the
      step's bg fed the staged chain's inputs (labelIds converted after
      the splat, depth through its uint16 encoding), the panoptic maps
-     there within 1e-3; the staged maps against phase 12's fused PNGs
-     (mismatch and the segment ids in one map only, reported; < 5 %);
+     there within 1e-3; the staged maps against phase 12's fused PNGs:
+     < 2.5 % of pixels, each segment in one map only under 256 pixels,
+     and the share of differing pixels where the z-buffer holds label 0
+     (road in the fused step, void in the staged chain), reported;
      evaluate_panoptic; export_instances and evaluate_instances (allAp
      0, NaN per class: the fixture has no GT instance) and a 1024x2048
      instance map with two thing instances scored against its own masks
@@ -181,7 +183,7 @@ from panoptic_forecasting_tpu_torch.kernels.zbuffer import (
 )
 from panoptic_forecasting_tpu_torch.models import BGModel, FGModel, OdomModel, seeded_init_
 from panoptic_forecasting_tpu_torch.models.pc_transform import (
-    PCTransformModel, pc_transform_predict, reproject,
+    PCTransformModel, _camera_maps, pc_transform_predict, reproject,
 )
 from panoptic_forecasting_tpu_torch.scripts import prof_minwin, prof_strided_load
 from panoptic_forecasting_tpu_torch.scripts._timing import (
@@ -444,6 +446,18 @@ def k2_flops(seg, num_classes: int) -> float:
     return 16 * taps + 32 * inb + 32 * pixels
 
 
+def host_ms(fn, n=50, warmup=5):
+    """Median host-clock ms of ``fn()`` over ``n`` calls."""
+    for _ in range(warmup):
+        fn()
+    ms = []
+    for _ in range(n):
+        ts = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - ts) * 1e3)
+    return sorted(ms)[n // 2]
+
+
 def stage_breakdown(step, bg, fg, pc_in, fg_in, dev):
     """Where the step's time goes: each stage alone on device-resident
     inputs (CUDA events), then one step under torch.profiler for the
@@ -469,6 +483,13 @@ def stage_breakdown(step, bg, fg, pc_in, fg_in, dev):
         "fg": time_ms(lambda: fg(fg_flat, OUT_T), 10, 2),
     }
     ms["fusion_and_rest"] = ms["step_device_inputs"] - ms["pc"] - ms["bg"] - ms["fg"]
+    # the host 4x4 chain inside `pc` (with JAX's rounding), beside a plain
+    # f32 chain of torch.linalg.inv and einsum on the same matrices
+    K, E, T = args[3:]
+    ms["camera_chain_host"] = host_ms(lambda: _camera_maps(K, E, T))
+    ms["camera_chain_plain_host"] = host_ms(lambda: torch.einsum(
+        "btij,bjk->btik", torch.einsum("bij,btjk,bkl->btil", torch.linalg.inv(E), T, E)
+        [..., :3, :3], torch.linalg.inv(K)))
     print("[stages] " + json.dumps({k: round(v, 4) for k, v in ms.items()}))
 
     torch.cuda.reset_peak_memory_stats()
@@ -1309,25 +1330,12 @@ def staged_chain(cfg, store, root, platform, tag=""):
             "--set", "bg_out", os.path.join(root, "bg_data")] + plat)
         bg_argv = ["--working_dir", cfg["fused"]["bg_dir"], "--config_file", bg_cfg,
                    "--set", "no_convert", "true", "--set", "export_name", f"bg_staged{tag}"]
-        out["bg_export"] = counted(export_split_timed, export_segmentation, bg_argv + plat)
+        out["bg_export"] = counted(export_segmentation.main, bg_argv + plat)
         fg_argv = ["--working_dir", cfg["working_dir"], "--config_file", fg_cfg,
                    "--load_torch_model", cfg["load_torch_model"],
                    "--set", "export_name", f"staged{tag}"] + plat
-        out["panoptic"] = counted(export_split_timed, export_panoptic, fg_argv)
+        out["panoptic"] = counted(export_panoptic.main, fg_argv)
     return out, fg_argv, read_yaml(bg_cfg)
-
-
-def export_split_timed(cli, argv):
-    """``cli.main``'s work with its set-up apart: (result of export_split,
-    frames, host seconds of export_split)."""
-    ecfg, task_data, model = setup(load_config(argv), test=True)
-    model = restore_params(ecfg, model)
-    if hasattr(model, "maybe_fold"):
-        model = model.maybe_fold()
-    ts = time.perf_counter()
-    out = cli.export_split(model, task_data, "val", ecfg)
-    secs = time.perf_counter() - ts
-    return out, len(task_data.datasets["val"]), secs
 
 
 def canvases(root_dir):
@@ -1373,36 +1381,33 @@ def self_scored_ap(root):
 
 class StagedInputs(torch.nn.Module):
     """The bg model fed the step's reprojection of labelIds as the staged
-    chain hands it over: converted to trainIds after the splat (the step
-    converts before it, so where the z-buffer's winner is a point the
-    reference marks invalid, label 0, the step reads road and the staged
-    chain labelId 0, void), and the depth encoded ``(d + 1)·256`` into
-    uint16 (``prepare_bg_data``) and decoded as ``BGModel._prep_inputs``
-    decodes it (``/256 - 1``, clamped). Keeps each call's logits."""
+    chain hands it over: ``prepare_bg_data.staged_maps`` converts the
+    labels to trainIds after the splat (the step converts before it, so
+    where the z-buffer holds label 0 -- no point, or a point the
+    reference marks invalid -- the step reads road and the staged chain
+    labelId 0, void) and encodes the depth into the h5's uint16 code,
+    which ``BGModel._prep_inputs`` decodes on the card. Keeps each call's
+    logits and its label-0 pixels (in any input frame)."""
 
     def __init__(self, bg):
         super().__init__()
-        self.bg, self.logits = bg, []
-        self.register_buffer("lut", torch.as_tensor(id_to_train_id_lut().astype(np.int32)))
+        self.bg, self.logits, self.label0 = bg, [], []
 
     def forward(self, inputs, return_argmax=False):
-        d, mask = inputs["depth"], inputs["depth_mask"]
-        code = torch.where(mask, ((d + 1.0) * 256.0).clamp(0, 65535).floor(), 0.0)
-        dep = code / 256.0 - 1.0
-        keep = dep > 0
-        dep = torch.where(keep, dep.clamp(self.bg.min_depth, self.bg.max_depth), -1.0)
-        seg = self.lut[inputs["seg"].long().clamp(0, 255)]
-        logits = self.bg({"seg": seg, "depth": dep, "depth_mask": keep})
+        seg = inputs["seg"].cpu().numpy()
+        seg_train, code = prepare_bg_data.staged_maps(seg, inputs["depth"].cpu().numpy())
+        logits = self.bg({"seg": seg_train, "depth": code})
         self.logits.append(logits)
+        self.label0.append((seg == 0).any(1))
         return torch.argmax(logits, 1).to(torch.int32) if return_argmax else logits
 
 
 def staged_input_maps(cfg, store, dev):
     """{frame: (labelId panoptic map, bg class map, top-2 logit gap, top
-    logit)} of the serving step (``eval/forecast.py``) on each forecast
-    frame's inputs with the segmentations in labelIds, its bg model fed
-    the staged chain's inputs (``StagedInputs``): what the staged chain
-    computes, through the step's own reprojection."""
+    logit, label-0 pixels)} of the serving step (``eval/forecast.py``) on
+    each forecast frame's inputs with the segmentations in labelIds, its
+    bg model fed the staged chain's inputs (``StagedInputs``): what the
+    staged chain computes, through the step's own reprojection."""
     with store_readers(store):
         cfg, task_data, fg_model = setup(Config(cfg), test=True)
         fg_model = restore_params(cfg, fg_model)
@@ -1424,7 +1429,7 @@ def staged_input_maps(cfg, store, dev):
             out[name] = (relabel_panoptic_trainid_to_labelid(
                 res["panoptic"][0].cpu().numpy().astype(np.int64)),
                 res["bg_seg"][0].cpu().numpy(), (top2[0] - top2[1]).cpu().numpy(),
-                top2[0].cpu().numpy())
+                top2[0].cpu().numpy(), bg_model.label0.pop()[0])
     return out
 
 
@@ -1433,7 +1438,8 @@ def staged_phase(dev, fixtures, card):
     CLI with the launch counts set to 0 just before it and read just
     after: prepare_gt_nofg, prepare_bg_data (3 place_min_fold a pc
     batch), the bg canvases (1 onehot_stem_conv a bg batch),
-    export_panoptic against phase 12's fused PNGs (equal ids, < 2 %),
+    export_panoptic against the step fed the staged inputs and against
+    phase 12's fused PNGs (< 2.5 %, segments in one map only < 256 px),
     evaluate_panoptic, export_instances + evaluate_instances (allAp 0,
     NaN per class: the fixture has no GT instance; a self-scored map AP
     1), viz_panoptic on one frame; then the chain at 256x512 on the card
@@ -1446,9 +1452,11 @@ def staged_phase(dev, fixtures, card):
     frames = report["val"]["frames"]
     pc_cfg = Config(read_yaml(cfg["fused"]["pc_config"]))
     pc_batches = -(-frames // int(pc_cfg["training"]["batch_size"]))
-    (_, bg_frames, bg_s), bg_launches, _ = out["bg_export"]
+    bg_report, bg_launches, _ = out["bg_export"]
+    bg_frames, bg_s = bg_report["val"]["frames"], bg_report["val"]["seconds"]
     bg_batches = -(-bg_frames // int(bg_cfg["training"]["batch_size"]))
-    (result_dir, pan_frames, pan_s), pan_launches, _ = out["panoptic"]
+    pan_report, pan_launches, _ = out["panoptic"]
+    result_dir, pan_frames, pan_s = (pan_report["val"][k] for k in ("dir", "frames", "seconds"))
     print(f"[staged] prepare_bg_data: {frames} frames in {pc_batches} pc batches, "
           f"launches {prep_launches}; bg export: {bg_frames} frames in {bg_batches} "
           f"batches, launches {bg_launches}; export_panoptic launches {pan_launches}")
@@ -1478,8 +1486,8 @@ def staged_phase(dev, fixtures, card):
     # within 1e-4 of the top logit (the seeded bg's logits reach ~100;
     # cuDNN sums them in another order at batch 2 than at batch 1)
     stage_canvases = canvases(os.path.join(cfg["fused"]["bg_dir"], "bg_staged"))
-    sure_share, unsure, pan_gap, tie_gap = 1.0, 0, 0.0, 0.0
-    for name, (pan, bg_seg, gap, top) in staged_input_maps(cfg, store, dev).items():
+    sure_share, unsure, inputs_pan_gap, tie_gap, label0 = 1.0, 0, 0.0, 0.0, {}
+    for name, (pan, bg_seg, gap, top, l0) in staged_input_maps(cfg, store, dev).items():
         mine, differ = forecast[name], stage_canvases[name] != bg_seg
         sure = gap > 1e-4 * np.maximum(np.abs(top), 1.0)
         if (differ & sure).any():
@@ -1493,30 +1501,40 @@ def staged_phase(dev, fixtures, card):
         sure_share = min(sure_share, float(sure.mean()))
         unsure += int(differ.sum())
         tie_gap = max(tie_gap, float(gap[differ].max()) if differ.any() else 0.0)
-        pan_gap = max(pan_gap, float((mine != pan)[sure].mean()))
-    if not (sure_share > 0.99 and pan_gap < 1e-3):
+        inputs_pan_gap = max(inputs_pan_gap, float((mine != pan)[sure].mean()))
+        label0[name] = l0
+    if not (sure_share > 0.99 and inputs_pan_gap < 1e-3):
         raise SystemExit(f"staged against the step on the staged inputs: "
                          f"{sure_share:.4f} of pixels off near-ties, panoptic "
-                         f"mismatch there {pan_gap:.3e}")
-    # ... and against phase 12's fused CLI, whose bg takes the float depth
-    # and road where no point landed
+                         f"mismatch there {inputs_pan_gap:.3e}")
+    # ... and against phase 12's fused CLI, whose bg reads road where the
+    # z-buffer holds label 0 and takes the float depth. The JAX package's
+    # budget for the two (equal id sets, < 2 % of pixels) is not met by
+    # the JAX package's own chains at 256x512 (tests/
+    # staged_vs_fused_witness.py); here the guards are set from this
+    # fixture's runs: < 2.5 % of pixels (2.1687 % read), and every segment
+    # found in one map only under 256 pixels (103 at most read)
     fused = cli_outputs(phase12["cuda"])[0]
-    worst, id_diff = 0.0, {}
+    worst, id_diff, on0 = 0.0, {}, [0, 0]
     for name, m in forecast.items():
         f = fused[name]
         worst = max(worst, float((m != f).mean()))
+        on0 = [on0[0] + int(((m != f) & label0[name]).sum()), on0[1] + int((m != f).sum())]
         for k in set(np.unique(m)) ^ set(np.unique(f)):
             id_diff[f"{name}:{int(k)}"] = [int((m == k).sum()), int((f == k).sum())]
+    label0_share = float(np.mean([l0.mean() for l0 in label0.values()]))
     things = thing_pixels(forecast)
     print(f"[staged] {H}x{W}: the staged chain against the step on the staged "
           f"chain's bg inputs: canvases equal off near-ties ({len(forecast)} frames, >= "
           f"{sure_share:.4f} of pixels; {unsure} canvas pixels at near-ties differ, "
           f"top-2 gap <= {tie_gap:.3g}), "
-          f"panoptic mismatch there {pan_gap:.3e}; against the fused "
-          f"CLI: worst mismatch {worst:.4%}, segment ids in one map only (staged, "
-          f"fused pixels) {json.dumps(id_diff)}; {things} instance pixels")
-    if not worst < 0.05:
-        raise SystemExit(f"staged against fused: {worst:.4%} of pixels differ")
+          f"panoptic mismatch there {inputs_pan_gap:.3e}; against the fused "
+          f"CLI: worst mismatch {worst:.4%}, {on0[0]} of the {on0[1]} differing pixels "
+          f"on label-0 pixels ({label0_share:.4f} of pixels), segment ids in one map "
+          f"only (staged, fused pixels) {json.dumps(id_diff)}; {things} instance pixels")
+    if not worst < 0.025 or any(max(n) >= 256 for n in id_diff.values()):
+        raise SystemExit(f"staged against fused: {worst:.4%} of pixels differ, "
+                         f"segments in one map only {id_diff}")
 
     gt_json, gt_dir, _ = gt_split(cfg, os.path.join(root, "gt"))
     pq_res, pq_s = evaluate(os.path.join(result_dir, f"{os.path.basename(result_dir)}.json"),
@@ -1565,11 +1583,11 @@ def staged_phase(dev, fixtures, card):
             sroot, f"staged_{platform}"), platform, tag=f"_{platform}")
         got[platform] = (canvases(os.path.join(small["fused"]["bg_dir"],
                                                f"bg_staged_{platform}")),
-                         panoptic_maps(run["panoptic"][0][0])[0])
+                         panoptic_maps(run["panoptic"][0]["val"]["dir"])[0])
     canvas_gap = compare_maps(got["cuda"][0], got["cpu"][0], 1e-3, "canvases GPU against CPU")
-    pan_gap = compare_maps(got["cuda"][1], got["cpu"][1], 1e-3, "staged GPU against CPU")
+    small_pan_gap = compare_maps(got["cuda"][1], got["cpu"][1], 1e-3, "staged GPU against CPU")
     print(f"[staged] {H_SMALL}x{W_SMALL} GPU against CPU: canvases worst {canvas_gap:.3e}, "
-          f"panoptic worst {pan_gap:.3e}")
+          f"panoptic worst {small_pan_gap:.3e}")
     phase_s = time.perf_counter() - ts0
     readings = {
         "prepare_bg_data_ms_per_frame": [ms / frames for ms in report["val"]["predict_ms"]],
@@ -1578,9 +1596,11 @@ def staged_phase(dev, fixtures, card):
         "export_panoptic_ms_per_frame": pan_s * 1e3 / pan_frames,
         "export_instances_s": inst_s, "pq": pq, "pq_s_per_frame": pq_s / len(anns),
         "ap_s_per_frame": ap_s / n_gt, "staged_vs_fused_mismatch": worst,
-        "staged_vs_fused_ids_in_one_map": id_diff, "staged_inputs_sure_share": sure_share,
-        "staged_inputs_near_tie_pixels": unsure, "staged_inputs_tie_gap": tie_gap, "staged_inputs_panoptic_mismatch": pan_gap,
-        "small_canvas_mismatch": canvas_gap, "small_panoptic_mismatch": pan_gap,
+        "staged_vs_fused_ids_in_one_map": id_diff,
+        "staged_vs_fused_differing_on_label0": on0, "label0_share": label0_share,
+        "staged_inputs_sure_share": sure_share, "staged_inputs_near_tie_pixels": unsure,
+        "staged_inputs_tie_gap": tie_gap, "staged_inputs_panoptic_mismatch": inputs_pan_gap,
+        "small_canvas_mismatch": canvas_gap, "small_panoptic_mismatch": small_pan_gap,
         "launches": {"prepare_bg_data": prep_launches, "bg_export": bg_launches,
                      "export_panoptic": pan_launches, "export_instances": inst_launches},
         "pc_batches": pc_batches, "bg_batches": bg_batches, "phase_s": phase_s}

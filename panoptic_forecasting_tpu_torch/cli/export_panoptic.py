@@ -26,6 +26,8 @@ import glob
 import json
 import os
 import sys
+import time
+from typing import Any, Dict
 
 import numpy as np
 
@@ -123,11 +125,19 @@ def backfill_missing(cfg, split, seg_dir, exported, annotations):
     print("NUM MISSING:", count)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Dict[str, Dict[str, Any]]:
+    """Export every split of the config; returns per split the result
+    dir, its fused frames and the host ``seconds`` of its
+    ``export_split``."""
     cfg, task_data, model = setup(load_config(argv), test=True)
     model = restore_params(cfg, model)
+    report = {}
     for split in task_data.datasets:
-        export_split(model, task_data, split, cfg)
+        ts = time.perf_counter()
+        out = export_split(model, task_data, split, cfg)
+        report[split] = {"dir": out, "frames": len(task_data.datasets[split]),
+                         "seconds": time.perf_counter() - ts}
+    return report
 
 
 if __name__ == "__main__":

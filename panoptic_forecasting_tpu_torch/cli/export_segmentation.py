@@ -29,6 +29,8 @@ from __future__ import annotations
 import glob
 import os
 import sys
+import time
+from typing import Any, Dict
 
 import numpy as np
 
@@ -148,16 +150,23 @@ def backfill_missing(base: str, split: str, cfg) -> int:
     return count
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Dict[str, Dict[str, Any]]:
+    """Export every split of the config; returns per split the export
+    dir, its frames and the host ``seconds`` of its ``export_split``."""
     cfg, task_data, model = setup(load_config(argv), test=True)
     if cfg["task"] != "pc_transform":
         model = restore_params(cfg, model)
     # bg serves folded (model.fold_bn: false keeps BN); pc_transform has none
     if hasattr(model, "maybe_fold"):
         model = model.maybe_fold()
+    report = {}
     for split in task_data.datasets:
+        ts = time.perf_counter()
         out = export_split(model, task_data, split, cfg)
+        report[split] = {"dir": out, "frames": len(task_data.datasets[split]),
+                         "seconds": time.perf_counter() - ts}
         print(f"exported {split} -> {out}")
+    return report
 
 
 if __name__ == "__main__":

@@ -48,13 +48,21 @@ from ..data.io import PNG_IDS, save_png
 from .common import config_device, setup
 
 
+def staged_maps(seg, depth):
+    """The staged bg inputs of reprojected labelIds and depths (any
+    shape): trainIds as uint8, and the depth code ``(depth + 1)·256`` as
+    uint16, 0 where no point landed (depth <= 0)."""
+    seg_train = id_to_train_id_lut()[np.clip(seg, 0, 255)].astype(np.uint8)
+    code = np.where(depth > 0, np.clip((depth + 1.0) * 256.0, 0, 65535), 0)
+    return seg_train, code.astype(np.uint16)
+
+
 def prepare_split(task_data, split, cfg, out_dir: str) -> Dict[str, Any]:
     """Write ``split``'s three seg trees and its depth h5. Returns the
     frames written, ``seconds`` for the split and, per index, the host ms
     of its predicts (to the maps on the host) summed over the split."""
     gap = int(cfg.get("data", {}).get("gap_len", 9))
     start_fr = int((9 - gap) / 3)
-    lut = id_to_train_id_lut()
     fmt = cfg.get("bg_out_format", "png")
     comp = cfg.get("bg_depth_compression", "none")
     comp = None if comp in ("none", None, False) else comp
@@ -80,7 +88,7 @@ def prepare_split(task_data, split, cfg, out_dir: str) -> Dict[str, Any]:
                 city, seq = meta["city"][i], meta["seq"][i]
                 frame = int(meta["frame"][i])
                 tgt = int(meta["target_frame"][i])
-                seg_train = lut[np.clip(segs[i], 0, 255)].astype(np.uint8)
+                seg_train, code = staged_maps(segs[i], deps[i])
                 base = os.path.join(seg_roots[ind], city,
                                     f"{city}_{seq}_{tgt:06d}_gtFine_labelIds")
                 if fmt == "npy":
@@ -91,9 +99,7 @@ def prepare_split(task_data, split, cfg, out_dir: str) -> Dict[str, Any]:
                 key = f"{city}/{seq}/{frame:06d}/{start_fr}"
                 if key not in blocks:
                     blocks[key] = np.zeros(deps[i].shape + (3,), np.uint16)
-                blocks[key][:, :, ind] = np.where(
-                    deps[i] > 0, np.clip((deps[i] + 1.0) * 256.0, 0, 65535), 0,
-                ).astype(np.uint16)
+                blocks[key][:, :, ind] = code
         io.append_h5(h5_path, blocks, compression=comp)
         n += len(meta["city"])
     for ind, root in enumerate(seg_roots):

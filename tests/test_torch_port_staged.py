@@ -19,7 +19,8 @@ in another order); panoptic maps on the same canvases have equal ids and
 differ on < 1e-3 of pixels, with equal json; instance manifests are
 equal. The port's staged chain against its fused CLI: equal id sets and
 < 2 % of pixels (the JAX package's own budget, tests/test_e2e_pipeline.py:
-216-224: depth passes through (depth+1)·256 uint16 and PNG).
+216-224: depth passes through (depth+1)·256 uint16 and PNG), differing
+where the JAX package's staged chain and fused CLI differ.
 """
 
 import glob
@@ -37,6 +38,7 @@ from panoptic_forecasting_tpu.cli import (
     export_instances as jax_export_instances,
     export_panoptic as jax_export_panoptic,
     export_segmentation as jax_export_segmentation,
+    forecast_fused as jax_forecast_fused,
     prepare_bg_data as jax_prepare_bg_data,
     prepare_gt_nofg as jax_prepare_gt_nofg,
 )
@@ -141,7 +143,8 @@ def _configs(root, side, cs, fg, odom):
 
 
 def _run_chain(side, c, cs, fg_pt, cache_dir):
-    """Every CLI of the chain on one side; returns its report."""
+    """Every CLI of the chain on one side; returns the reports of
+    ``prepare_bg_data`` and of the canvas export (None in JAX)."""
     if side == "jax":
         mods = (jax_export_segmentation, jax_prepare_bg_data, jax_prepare_gt_nofg,
                 jax_export_panoptic, jax_export_instances)
@@ -159,14 +162,14 @@ def _run_chain(side, c, cs, fg_pt, cache_dir):
                          + extra)
     nofg.main(["--cityscapes_dir", cs, "--splits", "val", "--out_dir",
                os.path.join(d, "nofg")])
-    seg.main(["--working_dir", os.path.join(d, "bg_run"), "--config_file", c["bg"],
-              "--set", "no_convert", "true", "--set", "export_name", "bg_export"]
-             + extra)
+    canvases = seg.main(["--working_dir", os.path.join(d, "bg_run"),
+                         "--config_file", c["bg"], "--set", "no_convert", "true",
+                         "--set", "export_name", "bg_export"] + extra)
     fg_argv = ["--working_dir", os.path.join(d, "fg_run"), "--config_file", c["fg"],
                "--load_torch_model", fg_pt] + extra
     panoptic.main(fg_argv)
     instances.main(fg_argv)
-    return report
+    return report, canvases
 
 
 def _world(root):
@@ -218,14 +221,24 @@ def _world(root):
     fg_argv = ["--working_dir", os.path.join(port["dir"], "fg_run"),
                "--config_file", own_fg, "--load_torch_model", fg_pt,
                "--set", "platform", "cpu"]
-    export_panoptic.main(fg_argv + ["--set", "export_name", "staged"])
+    staged = export_panoptic.main(fg_argv + ["--set", "export_name", "staged"])
     forecast_fused.main(fg_argv + [
         "--set", "fused.bg_config", port["bg"],
         "--set", "fused.bg_dir", os.path.join(port["dir"], "bg_run"),
         "--set", "fused.pc_config", port["pc"],
         "--set", "fused.height", str(H), "--set", "fused.width", str(W)])
+    # the JAX package's fused CLI, against its staged chain (its panoptic
+    # export fuses over its own canvases)
+    jx = cfgs["jax"]
+    jax_forecast_fused.main([
+        "--working_dir", os.path.join(jx["dir"], "fg_run"), "--config_file", jx["fg"],
+        "--load_torch_model", fg_pt, "--set", "compilation_cache_dir", cache_dir,
+        "--set", "fused.bg_config", jx["bg"],
+        "--set", "fused.bg_dir", os.path.join(jx["dir"], "bg_run"),
+        "--set", "fused.pc_config", jx["pc"],
+        "--set", "fused.height", str(H), "--set", "fused.width", str(W)])
     return {"root": root, "cs": cs, "cfgs": cfgs, "reports": reports,
-            "bg_vars": bg_vars}
+            "staged_report": staged, "bg_vars": bg_vars}
 
 
 def _files(root, pattern):
@@ -266,7 +279,7 @@ def test_prepare_bg_data_is_jax_byte_for_byte(world):
         assert got.dtype == np.uint16 and got.shape == (H, W, 3)
         np.testing.assert_array_equal(got, want)
         assert (got > 0).any(axis=(0, 1)).all()  # every index splatted depth
-    rep = world["reports"]["port"]["val"]
+    rep = world["reports"]["port"][0]["val"]
     assert rep["frames"] == 3 and len(rep["predict_ms"]) == 3
 
 
@@ -279,8 +292,12 @@ def test_gt_nofg_is_jax_byte_for_byte(world):
 
 def test_bg_canvases_match_jax_off_near_ties(world):
     """The bg export (folded, K2's plain version on the CPU) against
-    JAX's: equal class ids wherever the top-2 logit gap is > 1e-4."""
+    JAX's: equal class ids wherever the top-2 logit gap is > 1e-4; its
+    ``main`` reports the export's dir, frames and seconds."""
     a, b = (_side(world, s, "bg_run", "bg_export") for s in ("jax", "port"))
+    rep = world["reports"]["port"][1]["val"]
+    assert rep["dir"] == os.path.join(b, "val") and rep["frames"] == 3
+    assert rep["seconds"] > 0
     ja, pb = _files(a, "**/*.png"), _files(b, "**/*.png")
     assert sorted(ja) == sorted(pb) and len(ja) == 3
     bg_cfg = load_config(["--working_dir", _side(world, "port", "bg_run"),
@@ -362,14 +379,40 @@ def test_evaluate_instances_matches_jax(world, tmp_path):
 def test_staged_chain_matches_fused(world):
     """The port's staged chain (its own pc export, bg data, canvases and
     panoptic export) against its fused CLI on the same models: equal
-    segment id sets, < 2 % of pixels apart."""
+    segment id sets, < 2 % of pixels apart. ``export_panoptic.main``
+    reports the export's dir, its fused frames and its seconds."""
     run = _side(world, "port", "fg_run")
+    rep = world["staged_report"]["val"]
+    assert rep["dir"] == os.path.join(run, "staged_val")
+    assert rep["frames"] == 2 and rep["seconds"] > 0
     staged, _ = _panoptic(run, "staged_val")
     fused, _ = _panoptic(run, "fused_panoptics_val")
     assert list(fused) == list(staged)
     for name, pan in fused.items():
         assert set(np.unique(pan)) == set(np.unique(staged[name])), name
         assert (pan != staged[name]).mean() < 0.02, name
+
+
+def test_staged_against_fused_as_jax(world):
+    """The JAX package's staged chain against its own fused CLI differs
+    on the pixels where the port's does (within the panoptic budget),
+    with the same segment ids in one map only: the gap between the two
+    chains (the fused step reads the z-buffer's label 0 as road, the
+    staged chain as void; the staged depth's uint16 code) is the
+    reference's."""
+    def gaps(side, staged_name):
+        run = _side(world, side, "fg_run")
+        staged, _ = _panoptic(run, staged_name)
+        fused, _ = _panoptic(run, "fused_panoptics_val")
+        assert list(fused) == list(staged)
+        return {name: (staged[name] != f, set(np.unique(staged[name])) ^ set(np.unique(f)))
+                for name, f in fused.items()}
+
+    want, got = gaps("jax", PANOPTIC), gaps("port", "staged_val")
+    assert list(got) == list(want) and sum(int(m.sum()) for m, _ in want.values()) > 0
+    for name, (differ, ids) in got.items():
+        assert ids == want[name][1], name
+        assert (differ != want[name][0]).mean() < 1e-3, name
 
 
 @pytest.mark.parametrize("variant", ["raw_depth", "host_depth_decode", "resize", "npy"])
