@@ -9,7 +9,8 @@ panoptic_forecasting_tpu_torch.cli.{export_odom,forecast_fused,
 evaluate_panoptic}``, phases 12-13), the paper's staged chain
 prepare_gt_nofg -> prepare_bg_data -> export_segmentation ->
 export_panoptic / export_instances -> evaluate_panoptic /
-evaluate_instances -> viz_panoptic (phase 14) and the single-call panoptic
+evaluate_instances -> viz_panoptic (phase 14), training of the odometry
+and fg models (``cli.train``, phase 15) and the single-call panoptic
 forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
@@ -121,11 +122,31 @@ Phases (any failure exits non-zero):
      instance map with two thing instances scored against its own masks
      (AP 1); viz_panoptic on one frame; the chain at 256x512 on the card
      against the CPU (canvases and panoptic maps: ids equal, < 1e-3).
-     Prints ms per frame of each stage and PQ and AP s per frame.
+     Prints ms per frame of each stage and PQ and AP s per frame;
+ 15. training (``python -m panoptic_forecasting_tpu_torch.cli.train``,
+     its ``main``) on the card with the launch counts set to 0 just
+     before each run and read just after (the training path reaches no
+     kernel of the port; printed): configs/odom/odom_train.yaml at full
+     width (batch 32, GRU 128) on phase 13's 500-snippet table, 2 epochs
+     of 50 steps; configs/fg/fg_train.yaml at full width (batch 32, GRU
+     128, 2 ConvLSTM layers over 256x14x14 features) on a 10-scene fg
+     fixture with a train split (>= 32 tracks), 2 epochs of 10 steps,
+     then resumed for a third: it continues at step 20 with the saved
+     Adam state (30 Adam steps after it), and its epoch agrees with a
+     straight 3-epoch run within 1e-3 of each loss (cuDNN's backward is
+     not deterministic); the losses finite. Then 20 steps of each model
+     on one fixed batch (the fg loss must fall): ms per step by CUDA
+     events (median and range after 3 of warm-up), samples/s, peak
+     memory above the earlier phases' tensors, device-busy ms per step
+     from torch.profiler over 5 steps and kernel launches per step, with
+     the card's name and power limit; and one fg step at narrow widths
+     on the card against the CPU: losses within 1e-4 relative, each
+     parameter within lr·|Δg|/eps + 4 ulp (Adam's first step).
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (both K1 entry points, K2, K3 and each K4 probe) and the CLI's,
-the scoring's and the staged chain's readings, and last a JSON line
+the scoring's, the staged chain's and the training's readings, and last
+a JSON line
 {"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
 """
@@ -153,6 +174,7 @@ from panoptic_forecasting_tpu_torch.cli import (
     export_panoptic, export_segmentation, forecast_fused, prepare_bg_data,
     prepare_gt_nofg, viz_panoptic,
 )
+from panoptic_forecasting_tpu_torch.cli import train as train_cli
 from panoptic_forecasting_tpu_torch.cli.common import restore_params, setup
 from panoptic_forecasting_tpu_torch.core import build_dataset, build_model
 from panoptic_forecasting_tpu_torch.core import checkpoint as ckpt
@@ -182,10 +204,13 @@ from panoptic_forecasting_tpu_torch.kernels.zbuffer import (
     decode_canvas, splat_stream, zbuffer_splat,
 )
 from panoptic_forecasting_tpu_torch.models import BGModel, FGModel, OdomModel, seeded_init_
+from panoptic_forecasting_tpu_torch.models.base import init_weights
 from panoptic_forecasting_tpu_torch.models.pc_transform import (
     PCTransformModel, _camera_maps, pc_transform_predict, reproject,
 )
 from panoptic_forecasting_tpu_torch.scripts import prof_minwin, prof_strided_load
+from panoptic_forecasting_tpu_torch.train.loop import to_device
+from panoptic_forecasting_tpu_torch.train.optim import build_optimizer
 from panoptic_forecasting_tpu_torch.scripts._timing import (
     device_ms, kernel_profile, time_ms,
 )
@@ -1609,6 +1634,247 @@ def staged_phase(dev, fixtures, card):
     return readings
 
 
+# ---- 15. training ---------------------------------------------------------------
+
+TRAIN_FG_SCENES = 10  # phase 12's fg fixture with a train split: >= 32 tracks
+NARROW_FG = (("model.mask_feat_channels", 32), ("model.mask_feat_hw", 7),
+             ("model.mask_head.conv_dim", 32), ("model.rnn_hidden", 32),
+             ("model.instance_feat_hidden", 32), ("training.batch_size", 8))
+
+
+def train_argv(kind, wd, data_dir, *sets):
+    """cli.train's arguments: configs/{kind}/{kind}_train.yaml at full
+    width on ``data_dir``, with dotted ``sets`` (path, value pairs)."""
+    argv = ["--working_dir", wd, "--config_file",
+            os.path.join(REPO, "configs", kind, f"{kind}_train.yaml")]
+    keys = (("data_dir",) if kind == "odom" else
+            ("data_dir", "depth_dir", "feats_dir", "info_3d_dir"))
+    for k in keys:
+        argv += ["--set", f"data.{k}", data_dir]
+    for path, value in sets:
+        argv += ["--set", path, str(value)]
+    return argv
+
+
+def train_cli_run(argv, store):
+    """cli.train.main on the card with the launch counts set to 0 just
+    before and read just after: (result, launches, host seconds)."""
+    reset_counts()
+    ts = time.perf_counter()
+    with store_readers(store):
+        result = train_cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - ts
+    launches = read_counts()
+    losses = [v["loss"] for h in result["history"] for v in (h["train"], h["val"])
+              if v is not None]
+    if not result["history"] or not np.all(np.isfinite(losses)):
+        raise SystemExit(f"training gave no or non-finite losses: {result['history']}")
+    return result, launches, secs
+
+
+def fg_step_flops(model, batch) -> float:
+    """Convolution operations of one fg training step on ``batch``: each
+    conv's 2·weight·B·hw² per call (ConvLSTM cells at every input and
+    output step, the 1x1 heads and the instance compressor; the mask head
+    is not in the loss), times 3 for the forward and the two backward
+    products (input and weight gradients)."""
+    b, t_in = batch["inputs"]["trajectories"].shape[:2]
+    out_t = batch["labels"]["trajectories"].shape[1]
+    calls = [(cell.conv, t_in) for cell in model.mask_encoder.cell_list]
+    calls += [(cell.conv, out_t) for cell in model.mask_decoder.cell_list]
+    calls += [(model.mask_encoder_out, 1), (model.mask_decoder_out, out_t),
+              (model.instance_compressor, t_in + out_t)]
+    hw2 = model.mask_feat_hw ** 2
+    return 3 * sum(2 * conv.weight.numel() * b * hw2 * n for conv, n in calls)
+
+
+def train_steps(argv, store, dev, steps=20, warmup=3):
+    """Steps of the config's model (seeded) on one fixed training batch on
+    the card: each step's ms by CUDA events after ``warmup``, the losses,
+    the peak memory, and the device-busy ms per step from torch.profiler
+    over 5 more steps."""
+    with store_readers(store):
+        cfg, data, model = setup(load_config(argv))
+        batch = next(iter(data.loader("train", cfg, seed=SEED)))
+    batch = to_device(batch, dev)
+    init_weights(model, SEED)
+    model.train()
+    opt = build_optimizer(model, cfg)
+
+    def step():
+        loss, _ = model.loss(batch)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # earlier phases' tensors
+    losses, events = [], []
+    for i in range(steps):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        losses.append(step())
+        ev[1].record()
+        if i >= warmup:
+            events.append(ev)
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in events)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    busy = device_ms(step, 5)
+    launches = sum(n for n, _ in kernel_profile(step, 1).values())
+    losses = torch.stack(losses).cpu().numpy()
+    bs = int(cfg["training"]["batch_size"])
+    med = ms[len(ms) // 2]
+    flops = fg_step_flops(model, batch) if cfg["task"] == "fg" else None
+    return {"batch": bs, "ms_median": med, "ms_min": ms[0], "ms_max": ms[-1],
+            "conv_tflop": flops and flops / 1e12,
+            "conv_tflop_per_s": flops and flops / med / 1e9,
+            "conv_f32_bound_ms": flops and flops / F32_FLOP_PER_S * 1e3,
+            "samples_per_s": bs / med * 1e3, "peak_gib": peak,
+            "busy_ms": busy, "busy_share": busy / med, "kernels_per_step": launches,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "losses_finite": bool(np.isfinite(losses).all())}
+
+
+def one_step_gpu_cpu(root, dev):
+    """One fg step from the same seeded weights and batch on the card and
+    on the CPU at narrow widths (a 32-channel 7x7 fixture): ({platform:
+    loss}, loss relative difference, largest gradient difference over its
+    tensor's largest entry, largest parameter excess over the Adam
+    bound)."""
+    fg = os.path.join(root, "fg_narrow")
+    store = synthetic.write_fg_fixture(fg, n_scenes=3, max_instances=3, seed=SEED,
+                                       feat_channels=32, feat_hw=7)
+    out = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        argv = train_argv("fg", os.path.join(root, f"narrow_{name}"), fg,
+                          ("platform", name), *NARROW_FG)
+        with store_readers(store):
+            cfg, data, model = setup(load_config(argv))
+            batch = next(iter(data.loader("train", cfg, seed=SEED)))
+        init_weights(model, SEED)
+        model.train()
+        before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        loss, _ = model.loss(to_device(batch, d))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        build_optimizer(model, cfg).step()
+        after = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        out[name] = (float(loss.detach()), before, grads, after, float(cfg["training"]["lr"]))
+    (lg, before, gg, ag, lr), (lc, _, gc, ac, _) = out["cuda"], out["cpu"]
+    rel = abs(lg - lc) / abs(lc)
+    grad_rel = max(float((gg[n] - gc[n]).abs().max() / gc[n].abs().max().clamp(min=1e-30))
+                   for n in gc)
+    # Adam's first step is lr·g/(|g| + eps): its slope in g is at most 1/eps
+    excess = -float("inf")
+    for n in ag:
+        dg = (gg[n] - gc[n]).abs() if n in gg else torch.zeros_like(ag[n])
+        ulp = 4 * torch.maximum(before[n].abs(), torch.tensor(lr)) * 2.0 ** -23
+        excess = max(excess, float(((ag[n] - ac[n]).abs() - lr * dg / 1e-8 - ulp).max()))
+    return {"cuda": lg, "cpu": lc}, rel, grad_rel, excess
+
+
+def train_phase(dev, root, card):
+    """Phase 15: cli.train on the card with both training configs at full
+    width; the fg run resumed; fixed-batch step timings; one narrow fg
+    step on the card against the CPU."""
+    ts0 = time.perf_counter()
+    odom_dir = os.path.join(root, "odom_train")
+    odom_store = synthetic.write_odom_fixture(odom_dir, n_snippets=TIMED_SNIPPETS)
+    fg_dir = os.path.join(root, "fg_train")
+    fg_store = synthetic.write_fg_fixture(fg_dir, n_scenes=TRAIN_FG_SCENES,
+                                          max_instances=N_INST, seed=SEED)
+    tracks = len(fg_store["tables"][os.path.join(fg_dir, "train_instance_meta.pkl")])
+    if tracks < 32:
+        raise SystemExit(f"the fg train split holds {tracks} tracks, fewer than a batch")
+
+    odom_argv = train_argv("odom", os.path.join(root, "odom_run"), odom_dir,
+                           ("training.steps_per_epoch", 50), ("training.num_epochs", 2))
+    odom, odom_launches, odom_s = train_cli_run(odom_argv, odom_store)
+    wd = os.path.join(root, "fg_run")
+    fg_argv = train_argv("fg", wd, fg_dir, ("training.steps_per_epoch", 10),
+                         ("training.num_epochs", 2))
+    fg, fg_launches, fg_s = train_cli_run(fg_argv, fg_store)
+    saved = ckpt.load_trainer_state(wd)
+    resumed, resume_launches, resume_s = train_cli_run(
+        fg_argv + ["--continue_training", "--set", "training.num_epochs", "3"], fg_store)
+    after = ckpt.load_trainer_state(wd)
+    adam_steps = int(after["opt_state"]["state"][0]["step"])
+    # a straight 3-epoch run: cuDNN's backward convolutions are not
+    # deterministic, so the resumed epoch agrees within a tolerance (1e-3
+    # of each loss), not bit for bit as on the CPU
+    straight, _, _ = train_cli_run(train_argv(
+        "fg", os.path.join(root, "fg_straight"), fg_dir,
+        ("training.steps_per_epoch", 10), ("training.num_epochs", 3)), fg_store)
+    resume_gap = max(abs(resumed["history"][0][split]["loss"]
+                         - straight["history"][2][split]["loss"])
+                     / abs(straight["history"][2][split]["loss"])
+                     for split in ("train", "val"))
+    a, b = resumed["model"].state_dict(), straight["model"].state_dict()
+    resume_param_gap = max(float((a[k] - b[k]).abs().max()) for k in a)
+    print(f"[train] odom {odom['step']} steps in {odom_s:.1f} s, fg {fg['step']} "
+          f"steps in {fg_s:.1f} s, resumed at epoch {saved['epoch']} step "
+          f"{saved['step']}: {resumed['step']} steps, Adam step count {adam_steps}")
+    if (odom["step"], fg["step"], saved["step"], saved["epoch"]) != (100, 20, 20, 3):
+        raise SystemExit("the training runs took other steps than 2 epochs of 50 / 10")
+    if ([h["epoch"] for h in resumed["history"]] != [3] or resumed["step"] != 30
+            or after["step"] != 30 or adam_steps != 30):
+        raise SystemExit("the resumed fg run did not continue from the saved step "
+                         "and optimizer state")
+    print(f"[train] fg epoch 3 resumed against straight: losses {resume_gap:.3e} "
+          f"apart relative (limit 1e-3), parameters at most {resume_param_gap:.3e}")
+    if not resume_gap < 1e-3:
+        raise SystemExit("the resumed fg epoch differs from the straight run's")
+    launched = {k: v for k, v in {**odom_launches, **fg_launches,
+                                  **resume_launches}.items() if v}
+    print(f"[train] kernel launches while training: "
+          f"{json.dumps({'odom': odom_launches, 'fg': fg_launches, 'fg_resumed': resume_launches})}"
+          f" (the training path reaches no kernel of the port: "
+          f"{'none launched' if not launched else launched})")
+
+    steps = {"odom": train_steps(odom_argv, odom_store, dev),
+             "fg": train_steps(fg_argv, fg_store, dev)}
+    for kind, r in steps.items():
+        print(f"[train] {kind} step, batch {r['batch']} on the card: median "
+              f"{r['ms_median']:.2f} ms ({r['ms_min']:.2f}-{r['ms_max']:.2f}, CUDA "
+              f"events), {r['samples_per_s']:.1f} samples/s, peak "
+              f"{r['peak_gib']:.2f} GiB above earlier phases' tensors, device busy "
+              f"{r['busy_ms']:.2f} ms ({r['busy_share']:.3f} of a step) over "
+              f"{r['kernels_per_step']} kernel launches, loss {r['loss_first']:.5f} -> "
+              f"{r['loss_last']:.5f} over 20 steps on one batch | {card}")
+        if not r["losses_finite"]:
+            raise SystemExit(f"{kind}: non-finite training losses")
+    f = steps["fg"]
+    print(f"[train] fg step: {f['conv_tflop']:.3f} TFLOP of convolutions, "
+          f"{f['conv_tflop_per_s']:.1f} TFLOP/s; f32 bound (67 TFLOP/s) "
+          f"{f['conv_f32_bound_ms']:.2f} ms | {card}")
+    if not steps["fg"]["loss_last"] < steps["fg"]["loss_first"]:
+        raise SystemExit("20 fg steps on one batch did not lower its loss")
+    step_losses, rel, grad_rel, excess = one_step_gpu_cpu(root, dev)
+    print(f"[train] one narrow fg step, card against CPU: losses "
+          f"{step_losses['cuda']!r} / {step_losses['cpu']!r}, relative difference "
+          f"{rel:.3e} (limit 1e-4); gradients at most {grad_rel:.3e} of their "
+          f"tensor's largest entry apart; parameters {excess:.3e} over "
+          f"lr·|Δg|/eps + 4 ulp at most (limit 0)")
+    if not rel < 1e-4 or excess > 0:
+        raise SystemExit("the fg step on the card and on the CPU disagree")
+    phase_s = time.perf_counter() - ts0
+    readings = {"steps": steps, "odom_cli_s": odom_s, "fg_cli_s": fg_s,
+                "fg_resume_s": resume_s, "fg_tracks": tracks,
+                "resume_loss_gap": resume_gap, "resume_param_gap": resume_param_gap,
+                "gpu_cpu_losses": step_losses, "gpu_cpu_loss_rel": rel,
+                "gpu_cpu_grad_rel": grad_rel, "gpu_cpu_param_excess": excess,
+                "launches": {"odom": odom_launches, "fg": fg_launches,
+                             "fg_resumed": resume_launches},
+                "phase_s": phase_s}
+    print(f"[train] phase 15 took {phase_s:.1f} s")
+    return readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1824,6 +2090,7 @@ def main() -> int:
         cli_launches, cli_readings, fixtures = cli_phase(dev, root)
         score_readings = score_phase(dev, fixtures, card)
         staged_readings = staged_phase(dev, fixtures, card)
+        train_readings = train_phase(dev, root, card)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
@@ -1912,7 +2179,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "cli": {
         k: cli_readings[k] for k in ("frames", "frames_per_s", "median_ms",
                                      "png_decode_ms", "thing_pixels")},
-        "score": score_readings, "staged": staged_readings}))
+        "score": score_readings, "staged": staged_readings, "train": train_readings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

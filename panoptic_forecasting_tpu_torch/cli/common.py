@@ -40,7 +40,9 @@ def config_device(cfg) -> torch.device:
 
 def setup(cfg: Config, test: bool = False) -> Tuple[Config, Any, Any]:
     """seed -> build datasets -> build the model on the config's device.
-    Returns (cfg, task data, model)."""
+    Outside ``test`` the train split is built and its statistics are on
+    the data card before the model reads them. Returns (cfg, task data,
+    model)."""
     device = config_device(cfg)
     seed_everything(int(cfg.get("seed", 0)))
     task_data = build_dataset(cfg, test=test)
@@ -79,9 +81,10 @@ def restore_params(cfg, model: torch.nn.Module) -> torch.nn.Module:
     loaded straight in: the port's modules keep the reference's names),
     then an explicit ``load_model``, then ``working_dir/best_model``, then
     ``working_dir/model_checkpoint``; with none of them, seeded weights
-    (``seed``). Normalisation statistics stay as the data card gave them
+    (``seed``) and the pretrained ones the config names. Normalisation
+    statistics stay as the data card gave them
     (``core/checkpoint.py``)."""
-    from ..models.base import seeded_init_
+    from ..models.base import init_weights
 
     if cfg.get("load_torch_model"):
         return ckpt.load_weights(model, _load_torch_checkpoint(cfg["load_torch_model"]))
@@ -92,7 +95,7 @@ def restore_params(cfg, model: torch.nn.Module) -> torch.nn.Module:
         path = os.path.join(wd, name)
         if os.path.isfile(path):
             return ckpt.load_model(path, model)
-    return seeded_init_(model, int(cfg.get("seed", 0)))
+    return init_weights(model, int(cfg.get("seed", 0)))
 
 
 def export_writer(cfg):

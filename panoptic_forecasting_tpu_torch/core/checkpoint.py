@@ -1,11 +1,15 @@
-"""Model checkpoints in the port's own format.
+"""Model and trainer checkpoints in the port's own format.
 
 Counterpart of ``panoptic_forecasting_tpu/core/checkpoint.py`` (reference
-train.py:139-141, 275-289): per run ``working_dir/best_model`` (val-best)
-and ``working_dir/model_checkpoint`` (latest), the JAX package's names.
-Each is one file, ``torch.save`` of the module's ``state_dict`` (CPU
-tensors); Orbax directories of the JAX package are not read (carry JAX
-weights across with ``models/convert.py``).
+train.py:139-141, 275-289): per run ``working_dir/best_model`` (val-best),
+``working_dir/model_checkpoint`` (latest) and
+``working_dir/training_checkpoint`` (the trainer's state: epoch to resume
+at, best val result and epoch, step, optimizer state), the JAX package's
+names. Each is one file written by ``torch.save`` and an atomic rename: a
+module's ``state_dict`` (CPU tensors), or the trainer's dict of tensors
+and plain values, read back with ``weights_only``. Orbax directories of
+the JAX package are not read (carry JAX weights across with
+``models/convert.py``).
 
 Normalisation statistics (top-level ``*_mean``/``*_std`` buffers, such as
 odom ``odom_mean``, bg ``depth_mean`` or fg ``traj_std``) are saved but
@@ -17,12 +21,13 @@ it was built with.
 from __future__ import annotations
 
 import os
-from typing import Mapping
+from typing import Any, Dict, Mapping
 
 import torch
 
 BEST = "best_model"
 LATEST = "model_checkpoint"
+TRAINER = "training_checkpoint"
 
 
 def is_stat_key(name: str) -> bool:
@@ -43,17 +48,21 @@ def load_weights(module: torch.nn.Module, state: Mapping[str, torch.Tensor]
     return module
 
 
+def _save(path: str, obj: Any) -> str:
+    """``torch.save`` to ``path`` by an atomic replace."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp_new"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+    return path
+
+
 def save_model(working_dir: str, module: torch.nn.Module,
                best: bool = False) -> str:
     """Write ``module``'s state_dict to ``working_dir/{best_model,
     model_checkpoint}`` (atomic replace)."""
-    os.makedirs(working_dir, exist_ok=True)
-    path = os.path.join(working_dir, BEST if best else LATEST)
     state = {k: v.detach().cpu() for k, v in module.state_dict().items()}
-    tmp = path + ".tmp_new"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
-    return path
+    return _save(os.path.join(working_dir, BEST if best else LATEST), state)
 
 
 def load_model(path_or_dir: str, module: torch.nn.Module,
@@ -65,3 +74,18 @@ def load_model(path_or_dir: str, module: torch.nn.Module,
         path = os.path.join(path_or_dir, BEST if best else LATEST)
     state = torch.load(path, map_location="cpu", weights_only=True)
     return load_weights(module, state)
+
+
+def save_trainer_state(working_dir: str, state: Dict[str, Any]) -> str:
+    """Write the trainer's state (tensors and plain values) to
+    ``working_dir/training_checkpoint``."""
+    return _save(os.path.join(working_dir, TRAINER), state)
+
+
+def load_trainer_state(working_dir: str) -> Dict[str, Any]:
+    return torch.load(os.path.join(working_dir, TRAINER), map_location="cpu",
+                      weights_only=True)
+
+
+def has_trainer_state(working_dir: str) -> bool:
+    return os.path.isfile(os.path.join(working_dir, TRAINER))

@@ -8,10 +8,11 @@ run config < ``--config_file`` YAML < first-class CLI flags < dotted
 including ``[a,b]`` lists. PyYAML is imported only where a YAML file is
 read or written.
 
-``--platform`` picks the device of the CLIs (``cli/common.py``): ``cpu``
-runs on the CPU, anything else on ``cuda``. The JAX package's
-multi-process flags (``--distributed`` and its coordinator) are not
-ported yet.
+``save_config`` writes the merged config to ``working_dir/config.yaml``
+(reference utils/misc.py:22-26). ``--platform`` picks the device of the
+CLIs (``cli/common.py``): ``cpu`` runs on the CPU, anything else on
+``cuda``. The JAX package's multi-process flags (``--distributed`` and
+its coordinator) are not ported yet.
 """
 
 from __future__ import annotations
@@ -93,6 +94,29 @@ class Config(dict):
         if isinstance(v, dict) and not isinstance(v, Config):
             return Config(v)
         return v
+
+    def to_dict(self) -> Dict:
+        """Plain nested dicts and lists (what ``yaml.safe_dump`` takes)."""
+        def conv(x):
+            if isinstance(x, dict):
+                return {k: conv(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return [conv(v) for v in x]
+            return x
+
+        return conv(dict(self))
+
+
+def save_config(cfg: Dict, working_dir: str) -> str:
+    """Write the merged config to ``working_dir/config.yaml``; returns the
+    path."""
+    import yaml
+
+    os.makedirs(working_dir, exist_ok=True)
+    path = os.path.join(working_dir, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(Config(cfg).to_dict(), f, sort_keys=False)
+    return path
 
 
 def _read_yaml(path: str) -> Dict:

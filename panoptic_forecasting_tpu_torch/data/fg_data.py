@@ -1,12 +1,14 @@
-"""Foreground scene dataset (eval/export) and the fg data helpers.
+"""Foreground datasets: per-instance tracks (training) and per-scene
+instance sets (eval/export), and the fg data helpers.
 
 Counterpart of ``panoptic_forecasting_tpu/data/fg_data.py`` (reference
 datasets/fg_scene_dataset.py, fg_instance_dataset.py). Artifacts:
 
-* ``{split}_seq_meta.pkl`` — per-scene arrays (N, 30, ...): track_id,
-  class, bboxes (ULBR), feat_mask, feat_ind;
-* ``{split}_depth_seq_info.pkl`` — per-frame instance depths
-  (−1 / 1000000 = invalid);
+* ``{split}_instance_meta.pkl`` / ``{split}_seq_meta.pkl`` — per track
+  (30, ...) or per scene (N, 30, ...): track_id, class, bboxes (ULBR),
+  feat_mask, feat_ind (and inst_ind per track);
+* ``{split}_depth_instance_info.pkl`` / ``{split}_depth_seq_info.pkl`` —
+  per-frame instance depths (−1 / 1000000 = invalid);
 * ``{split}_feats.h5`` keyed ``city/seq/frame`` → (K, 256, 14, 14) MaskRCNN
   ROI features, indexed by ``feat_ind``;
 * ``{split}_3d_info.pkl`` — odometry (30, 5) + times (30);
@@ -15,21 +17,26 @@ datasets/fg_scene_dataset.py, fg_instance_dataset.py). Artifacts:
   input Δt (fg_instance_dataset.py:384-412);
 * ``background_dir/{split}/{city}/*_gtFine_labelIds.png`` bg canvases.
 
-Scene eval takes inds [4..19] (+6 for short-term ``output_ind == 0``,
-fg_scene_dataset.py:206-211). Each scene's instances are dense arrays
-padded to a multiple of ``instance_pad_multiple`` with a ``valid`` mask.
+Frames are sampled every 3: training windows start at {4, 7, 10} (every
+start with ``expand_train``), the val track window at 19 − 3·(in+out−1)
+(fg_instance_dataset.py:159-165); scene eval takes inds [4..19] (+6 for
+short-term ``output_ind == 0``, fg_scene_dataset.py:206-211). The train
+split's statistics (``compute_fg_stats``) go on the card. Each scene's
+instances are dense arrays padded to a multiple of
+``instance_pad_multiple`` with a ``valid`` mask.
 Cityscapes heuristics kept: ``filter_car_gap``
 (fg_instance_dataset.py:184-217), ``add_car_offscreen_loc`` (219-286).
 
 Tables are read through ``io.read_table`` (rows as dicts) and h5 files
-through ``io.open_h5``. The per-track training dataset
-(``FGInstanceDataset``) is not ported yet.
+through ``io.open_h5``. The condensed-feats variant
+(``use_condensed_feats``) is set by no shipped config and raises
+``NotImplementedError`` in the track dataset.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -186,6 +193,188 @@ def compute_fg_stats(all_bboxes, all_feat_masks, all_depths, max_depth,
         flat_o = odometry.reshape(-1, 5)
         card.set_stats("odom", flat_o.mean(0), flat_o.std(0))
         card.extras["odom_size"] = 5
+
+
+class FGInstanceDataset:
+    """One sample = one instance track over ``input_len`` + 3 frames
+    (training; JAX data/fg_data.py:194-457)."""
+
+    def __init__(self, split: str, cfg: Dict[str, Any], card: DataCard,
+                 test: bool = False):
+        d = cfg.get("data", {})
+        if d.get("use_condensed_feats"):
+            raise NotImplementedError("fg data.use_condensed_feats is not ported")
+        self.split = split
+        self.test = test
+        self.input_len = int(d.get("input_len", 3))
+        self.output_len = 3
+        self.seq_len = self.input_len + self.output_len
+        self.use_ulbr = bool(cfg.get("use_bbox_ulbr"))
+        self.max_depth = d.get("max_depth")
+        self.expand_train = bool(d.get("expand_train"))
+        self.require_most_recent = bool(d.get("require_most_recent"))
+        self.filter_car_gap = d.get("filter_car_gap")
+        self.filter_car_gap_borderdist = d.get(
+            "filter_car_gap_borderdist", self.filter_car_gap
+        )
+        self.add_car_offscreen = bool(d.get("add_car_offscreen_loc"))
+        self.no_feats = bool(d.get("no_feats"))
+        self.use_3d_info = bool(d.get("use_3d_info"))
+        card.num_classes = 19
+        card.extras.setdefault("img_size", list(IMG_SIZE))
+
+        data_dir = d["data_dir"]
+        self.rows = io.read_table(os.path.join(data_dir, f"{split}_instance_meta.pkl"))
+        # Depth-source variants (fg_instance_dataset.py:30-31, 58-62).
+        depth_stem = "cascadedepth" if d.get("use_cascade_depths") else "depth"
+        depth_rows = io.read_table(os.path.join(
+            d.get("depth_dir", data_dir), f"{split}_{depth_stem}_instance_info.pkl"))
+        self.depths = [np.asarray(r["depth"]) for r in depth_rows]
+        self.feats_h5 = None if self.no_feats else io.open_h5(
+            os.path.join(d.get("feats_dir", data_dir), f"{split}_feats.h5"))
+        self._dsets: Dict[Tuple[str, str, int], Any] = {}
+        self.data3d = None
+        if self.use_3d_info:
+            self.data3d = io.read_table(
+                os.path.join(d.get("info_3d_dir", data_dir), f"{split}_3d_info.pkl"))
+            self._d3_index = {(r["city"], r["seq"], int(r["frame"])): i
+                              for i, r in enumerate(self.data3d)}
+        self.odom_h5 = None
+        if d.get("odom_pred_dir"):
+            self.odom_h5 = io.open_h5(
+                os.path.join(d["odom_pred_dir"], f"odometry_{split}.h5"))
+
+        if split == "train":
+            compute_fg_stats(
+                np.stack([r["bboxes"] for r in self.rows]),
+                np.stack([r["feat_mask"] for r in self.rows]),
+                np.stack(self.depths), self.max_depth, self.use_ulbr,
+                self.input_len, self.output_len, self.expand_train, card,
+                odometry=(np.stack([r["odometry"] for r in self.data3d])
+                          if self.use_3d_info else None),
+            )
+
+        base = np.arange(0, 3 * self.seq_len, 3)
+        if split == "train" and self.expand_train:
+            start_inds = range(30 - 3 * (self.seq_len - 1))
+        elif split == "train":
+            start_inds = [4, 7, 10]
+        else:
+            start_inds = [19 - 3 * (self.seq_len - 1)]
+        self.index: List[Tuple[int, int, np.ndarray]] = []
+        for idx, rec in enumerate(self.rows):
+            fm = np.asarray(rec["feat_mask"])
+            for s in start_inds:
+                inds = base + s
+                if np.any(fm[inds[: self.input_len]]) and np.any(
+                        fm[inds[self.input_len:]]):
+                    if self.require_most_recent and not fm[inds[self.input_len - 1]]:
+                        continue
+                    self.index.append((idx, s, inds))
+
+    def __len__(self) -> int:
+        return len(self.index)
+
+    def _load_feats(self, city, seq, frame, feat_inds) -> np.ndarray:
+        if self.feats_h5 is None:
+            return np.zeros((len(feat_inds), 256, 14, 14), np.float32)
+        key = (city, seq, int(frame))
+        dset = self._dsets.get(key)
+        if dset is None:
+            dset = self._dsets[key] = self.feats_h5.mmap_dataset(f"{city}/{seq}/{frame}")
+        feats = np.zeros((len(feat_inds),) + dset.shape[1:], np.float32)
+        valid = feat_inds != -1
+        if valid.any():
+            vi = feat_inds[valid]
+            if len(vi) > 1 and np.all(np.diff(vi) == 1):
+                block = dset[int(vi[0]): int(vi[-1]) + 1]
+            else:
+                block = dset[list(vi)]
+            feats[valid] = np.asarray(block, np.float32)
+        return feats
+
+    def _load_odometry(self, city, seq, frame, inds) -> Optional[np.ndarray]:
+        if not self.use_3d_info:
+            return None
+        rec3d = self.data3d[self._d3_index[(city, seq, int(frame))]]
+        odom = np.asarray(rec3d["odometry"], np.float32)
+        if self.odom_h5 is None:
+            return odom[inds]
+        start_fr = int(inds[self.input_len - 1])
+        times = np.asarray(rec3d["times"], np.float64)[int(inds[0]): start_fr + 1]
+        avg_dt = float(np.mean(times[1:] - times[:-1]))
+        preds = np.asarray(self.odom_h5[f"{city}/{seq}/{frame}/{start_fr}"][:])
+        expanded = expand_predicted_odom(preds, avg_dt)
+        return np.concatenate([odom[inds[: self.input_len]],
+                               expanded[[2, 5, 8]]]).astype(np.float32)
+
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        idx, start_fr, inds = self.index[i]
+        rec = self.rows[idx]
+        city, seq, frame = rec["city"], rec["seq"], int(rec["frame"])
+        cl = int(rec["class"])
+
+        bboxes = np.asarray(rec["bboxes"], np.float32)[inds]
+        bbox_mask = np.asarray(rec["feat_mask"])[inds].astype(bool)
+        feat_mask = bbox_mask.copy()
+        if self.filter_car_gap is not None and cl == 13:
+            bboxes, bbox_mask, feat_mask = filter_car_gap(
+                bboxes, bbox_mask, feat_mask, self.filter_car_gap,
+                self.filter_car_gap_borderdist, self.seq_len,
+            )
+        if self.add_car_offscreen:
+            bboxes, bbox_mask = add_car_offscreen_loc(
+                cl, bboxes, bbox_mask, self.input_len, self.output_len
+            )
+        if not self.use_ulbr:
+            bboxes = bbox_ulbr_to_cwh(bboxes)
+
+        bm = bbox_mask.astype(np.float32)
+        vel = np.concatenate([np.zeros((1, 4), np.float32), bboxes[1:] - bboxes[:-1]])
+        vel[1:] *= (bm[:-1] * bm[1:])[:, None]
+        vel_mask = np.concatenate([np.zeros(1, bool), bbox_mask[1:] & bbox_mask[:-1]])
+        traj = np.concatenate([bboxes, vel], axis=-1)
+
+        depths = np.asarray(self.depths[idx], np.float32)[inds][:, None]
+        depth_mask = _depth_valid(depths, self.max_depth)
+        dvel = np.concatenate([np.zeros((1, 1), np.float32), depths[1:] - depths[:-1]])
+        depths = np.concatenate([depths, dvel], axis=-1)
+
+        feats = self._load_feats(city, seq, frame, np.asarray(rec["feat_ind"])[inds])
+        one_hot = np.zeros(8, np.float32)
+        one_hot[cl - 11] = 1
+        n_in = self.input_len
+        out: Dict[str, Any] = {
+            "inputs": {
+                "feat_masks": feat_mask,
+                "bbox_masks": bbox_mask,
+                "bbox_vel_masks": vel_mask,
+                "trajectories": traj[:n_in],
+                "classes": np.array(cl - 11, np.int64),
+                "one_hot_classes": one_hot,
+                "depths": depths[:n_in],
+                "depth_masks": depth_mask[:n_in],
+                "feats": feats[:n_in],
+            },
+            "labels": {
+                "trajectories": traj[n_in:],
+                "output_inds": np.array(self.output_len - 1, np.int64),
+                "depths": depths[n_in:],
+                "depth_masks": depth_mask[n_in:],
+                "feats": feats[n_in:],
+            },
+            "meta": {
+                "city": city,
+                "seq": seq,
+                "frame": frame,
+                "track_id": rec["track_id"],
+                "instance_ind": rec.get("inst_ind", idx),
+            },
+        }
+        odom = self._load_odometry(city, seq, frame, inds)
+        if odom is not None:
+            out["inputs"]["odometry"] = odom
+        return out
 
 
 def fg_scene_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:

@@ -1,9 +1,12 @@
 """Batch loader: map-style datasets -> stacked numpy batches.
 
-Counterpart of the evaluation side of
-``panoptic_forecasting_tpu/data/loader.py`` (reference torch DataLoader +
-collate_fns, training/train.py:101-122). Yields numpy dict batches in
-dataset order; the caller moves them to its device. A thread pool per
+Counterpart of ``panoptic_forecasting_tpu/data/loader.py`` (reference
+torch DataLoader + InfiniteDataloader + collate_fns,
+training/train.py:25-64, 101-122). Yields numpy dict batches; the caller
+moves them to its device. Shuffled, ``drop_last``, weighted sampling
+(train.py:39-44) and ``steps_per_epoch`` epochs that reshuffle when the
+order runs out, drawing its numbers as JAX's loader does, so that one
+seed gives the same sample sequence in both packages. A thread pool per
 batch and a background prefetch thread.
 """
 
@@ -95,26 +98,36 @@ def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 class Loader:
-    """Iterate a dataset in order, in batches of ``batch_size`` (the last
-    may be short); one ``__iter__`` = one pass.
+    """Iterate a dataset in batches; one ``__iter__`` = one epoch.
 
     ``num_threads`` > 0 fetches each batch's samples on a thread pool
     (order kept); ``prefetch`` > 0 prepares that many batches ahead on a
-    background thread. The shuffled, weighted and ``steps_per_epoch``
-    training modes of the JAX package's loader are not ported yet.
-    """
+    background thread. Each epoch's order comes from
+    ``RandomState(rng.randint(2**31) + epoch)`` of the loader's own
+    ``RandomState(seed)`` (``rng_state`` carries it across a resume)."""
 
     def __init__(
         self,
         dataset,
         batch_size: int,
+        shuffle: bool = False,
+        drop_last: bool = False,
         collate_fn: Optional[Callable] = None,
+        steps_per_epoch: Optional[int] = None,
+        weights: Optional[np.ndarray] = None,
+        seed: int = 0,
         prefetch: int = 0,
         num_threads: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.collate = collate_fn or default_collate
+        self.steps_per_epoch = steps_per_epoch
+        self.weights = weights
+        self._rng = np.random.RandomState(seed)
+        self._epoch = 0
         self.prefetch = int(prefetch)
         self.num_threads = int(num_threads)
         self._pool = None
@@ -129,12 +142,40 @@ class Loader:
     def _fetch(self, idx) -> List[Dict[str, Any]]:
         """Fetch one batch worth of samples (thread-parallel if configured;
         order always matches ``idx``)."""
-        if self._pool is not None and len(idx) > 1:
-            return list(self._pool.map(self.dataset.__getitem__, idx))
-        return [self.dataset[i] for i in idx]
+        ints = [int(i) for i in idx]
+        if self._pool is not None and len(ints) > 1:
+            return list(self._pool.map(self.dataset.__getitem__, ints))
+        return [self.dataset[i] for i in ints]
+
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch added to each order's seed (reference
+        train.py:172-173, 300-305)."""
+        self._epoch = epoch
+
+    @property
+    def rng_state(self):
+        """The state of the loader's RandomState (between epochs)."""
+        return self._rng.get_state()
+
+    @rng_state.setter
+    def rng_state(self, state) -> None:
+        self._rng.set_state(state)
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        if self.steps_per_epoch is not None:
+            return self.steps_per_epoch
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _order(self) -> np.ndarray:
+        n = len(self.dataset)
+        rng = np.random.RandomState(self._rng.randint(2**31) + self._epoch)
+        if self.weights is not None:
+            p = np.asarray(self.weights, np.float64)
+            return rng.choice(n, size=n, replace=True, p=p / p.sum())
+        if self.shuffle:
+            return rng.permutation(n)
+        return np.arange(n)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         it = self._epoch_iter()
@@ -143,6 +184,22 @@ class Loader:
         return it
 
     def _epoch_iter(self) -> Iterator[Dict[str, Any]]:
-        n = len(self.dataset)
-        for s in range(0, n, self.batch_size):
-            yield self.collate(self._fetch(range(s, min(s + self.batch_size, n))))
+        for idx in self.batch_indices():
+            yield self.collate(self._fetch(idx))
+
+    def batch_indices(self) -> Iterator[np.ndarray]:
+        """The sample indices of each batch of one epoch."""
+        order = self._order()
+        if self.steps_per_epoch is None:
+            stop = (len(order) - len(order) % self.batch_size
+                    if self.drop_last else len(order))
+            for s in range(0, stop, self.batch_size):
+                yield order[s: s + self.batch_size]
+            return
+        # steps_per_epoch: draw fresh orders until the steps are served
+        pos = 0
+        for _ in range(self.steps_per_epoch):
+            if pos + self.batch_size > len(order):
+                order, pos = self._order(), 0
+            yield order[pos: pos + self.batch_size]
+            pos += self.batch_size

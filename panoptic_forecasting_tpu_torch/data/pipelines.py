@@ -4,8 +4,8 @@ Counterpart of ``panoptic_forecasting_tpu/data/pipelines.py`` (reference
 ``data/__init__.py:14-31``): each builder returns a ``TaskData`` bundle of
 split datasets and the DataCard handed to the model builder. Ported
 tasks: ``odom``, ``pc_transform``, ``bg`` (test mode, ``bg_data.py``)
-and ``fg`` with ``dataset_type: fg_scene``; the fg-instance (training)
-dataset is not ported yet and raises.
+and ``fg`` (``dataset_type`` ``fg_instance``, the training tracks, or
+``fg_scene``).
 """
 
 from __future__ import annotations
@@ -25,22 +25,31 @@ class TaskData:
     card: DataCard
     collate_fn: Callable = default_collate
 
-    def loader(self, split: str, cfg: Dict[str, Any],
-               test: bool = False) -> Loader:
-        """Batches of ``split`` in order (``training.val_batch_size`` or
-        ``batch_size``). ``training.num_data_threads`` (default min(8,
-        cores)) threads fetch each batch's samples and
-        ``training.prefetch_batches`` (default 2 with threads) batches are
-        prepared ahead. The training loader (shuffled train split) is not
-        ported yet."""
-        if split == "train" and not test:
-            raise NotImplementedError("the training loader is not ported yet")
+    def loader(self, split: str, cfg: Dict[str, Any], test: bool = False,
+               seed: int = 0) -> Loader:
+        """The train split outside ``test``: shuffled batches of
+        ``training.batch_size``, the last short one dropped, ``sample_weights``
+        (top-level) drawn with replacement, and with
+        ``training.steps_per_epoch`` that many × ``accumulate_steps``
+        batches an epoch (JAX data/pipelines.py:55-69). Otherwise batches
+        in order of ``training.val_batch_size`` or ``batch_size``.
+        ``training.num_data_threads`` (default min(8, cores)) threads fetch
+        each batch's samples and ``training.prefetch_batches`` (default 2
+        with threads) batches are prepared ahead."""
         t = cfg.get("training", {})
-        bs = int(t.get("val_batch_size") or t.get("batch_size", 32))
+        bs = int(t.get("batch_size", 32))
         threads = int(t.get("num_data_threads", min(8, os.cpu_count() or 1)))
         prefetch = int(t.get("prefetch_batches", 2 if threads else 0))
-        return Loader(self.datasets[split], bs, collate_fn=self.collate_fn,
-                      prefetch=prefetch, num_threads=threads)
+        kw = dict(collate_fn=self.collate_fn, seed=seed, prefetch=prefetch,
+                  num_threads=threads)
+        if split != "train" or test:
+            return Loader(self.datasets[split], int(t.get("val_batch_size") or bs),
+                          **kw)
+        steps = t.get("steps_per_epoch")
+        accum = int(t.get("accumulate_steps", 1))
+        return Loader(self.datasets[split], bs, shuffle=True, drop_last=True,
+                      steps_per_epoch=int(steps) * accum if steps else None,
+                      weights=cfg.get("sample_weights"), **kw)
 
 
 @register_dataset("odom")
@@ -75,14 +84,15 @@ def build_bg_data(cfg, test: bool = False) -> TaskData:
 
 @register_dataset("fg")
 def build_fg_data(cfg, test: bool = False) -> TaskData:
-    from .fg_data import FGSceneDataset, fg_scene_collate
+    from .fg_data import FGInstanceDataset, FGSceneDataset, fg_scene_collate
 
+    card = DataCard(task="fg")
     d = cfg.get("data", {})
     dataset_type = d.get("dataset_type", "fg_instance")
-    if dataset_type != "fg_scene":
-        raise NotImplementedError(f"fg dataset_type {dataset_type!r} is not "
-                                  "ported yet (only fg_scene)")
-    card = DataCard(task="fg")
     splits = d.get("data_splits", ["train", "val"])
-    datasets = {s: FGSceneDataset(s, cfg, card, test=test) for s in splits}
-    return TaskData(datasets=datasets, card=card, collate_fn=fg_scene_collate)
+    if dataset_type == "fg_scene":
+        cls, collate = FGSceneDataset, fg_scene_collate
+    else:
+        cls, collate = FGInstanceDataset, default_collate
+    datasets = {s: cls(s, cfg, card, test=test) for s in splits}
+    return TaskData(datasets=datasets, card=card, collate_fn=collate)

@@ -234,13 +234,14 @@ def write_fg_fixture(
     feat_hw: int = 14,
     store: Dict[str, Any] = None,
 ) -> Dict[str, Any]:
-    """FG-scene artifacts (seq meta, depth info, feats h5, 3d info) with
-    the JAX package's fixture content: moving boxes with smooth
+    """FG artifacts (instance and seq meta, their depth info, feats h5, 3d
+    info) with the JAX package's fixture content: moving boxes with smooth
     trajectories, low-rank random features. Returns ``store``."""
     store = store if store is not None else new_store()
     os.makedirs(root, exist_ok=True)
     rng = np.random.RandomState(seed)
     for split in splits:
+        inst_rows, inst_depth_rows = [], []
         scene_rows, scene_depth_rows, d3_rows = [], [], []
         feats: Dict[str, np.ndarray] = {}
         for s in range(n_scenes):
@@ -282,6 +283,12 @@ def write_fg_fixture(
                         f = np.zeros((feat_channels, feat_hw, feat_hw), np.float32)
                         f[:8] = base_feat * (1 + 0.02 * t)
                         all_feats.append(f)
+                inst_rows.append({
+                    "city": CITY, "seq": seq, "frame": frame,
+                    "track_id": 1000 + k, "class": cls, "bboxes": boxes,
+                    "feat_mask": mask, "feat_ind": fi, "inst_ind": k,
+                })
+                inst_depth_rows.append({"depth": depth})
                 boxes_all.append(boxes)
                 masks.append(mask)
                 finds.append(fi)
@@ -306,6 +313,10 @@ def write_fg_fixture(
             d3_rows.append({"city": CITY, "seq": seq, "frame": frame,
                             "odometry": odom, "times": np.arange(30) * 0.0589})
         _store_arrays(store, os.path.join(root, f"{split}_feats.h5"), feats)
+        _store_table(store, os.path.join(root, f"{split}_instance_meta.pkl"),
+                     inst_rows)
+        _store_table(store, os.path.join(root, f"{split}_depth_instance_info.pkl"),
+                     inst_depth_rows)
         _store_table(store, os.path.join(root, f"{split}_seq_meta.pkl"), scene_rows)
         _store_table(store, os.path.join(root, f"{split}_depth_seq_info.pkl"),
                      scene_depth_rows)

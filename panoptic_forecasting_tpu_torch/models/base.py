@@ -1,10 +1,14 @@
-"""Seeded random weights for the port's models.
+"""Seeded random weights for the port's models, and the elementwise
+losses of the training objectives.
 
 Every tensor is drawn on the CPU from an explicit ``torch.Generator``
 and copied to the module's device, so one seed gives the same weights
 on the CPU and on the GPU. Convolutions and linears get He-normal
 weights and small biases; BatchNorm gets non-trivial affine parameters
 and running statistics, so folding them into the convs is exercised.
+
+``smooth_l1``, ``mse`` and ``LOSS_FNS`` are the JAX package's
+``models/base.py:65-76``.
 """
 
 from __future__ import annotations
@@ -47,3 +51,28 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
             for p in m.parameters():
                 p.copy_(_uniform(g, p.shape, -bound, bound))
     return module
+
+
+def init_weights(module: nn.Module, seed: int) -> nn.Module:
+    """Seeded weights, then the pretrained ones the model's config names
+    (the fg mask head's detectron2 weights): what the JAX package's
+    ``init`` gives a model before any checkpoint is restored."""
+    seeded_init_(module, seed)
+    load = getattr(module, "load_pretrained", None)
+    if load is not None:
+        load()
+    return module
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise SmoothL1 (beta 1), as torch.nn.SmoothL1Loss."""
+    d = (pred - target).abs()
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    d = pred - target
+    return d * d
+
+
+LOSS_FNS = {"smooth_l1": smooth_l1, "mse": mse}

@@ -8,13 +8,15 @@ rows r | z | n). Pass numpy arrays (``np.asarray`` of each leaf).
 
 They are the exact inverse of the JAX package's
 ``models/reference_import.py::{odom,bg,fg}_from_reference``: converting
-back reproduces the JAX variables bit for bit.
+back reproduces the JAX variables bit for bit. ``opt_state_from_jax``
+carries an optax Adam or SGD state the same way, so a JAX training run
+resumes in the port.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -180,3 +182,49 @@ def fg_state_dict_from_jax(params: Tree,
         out[f"{name}_mean"] = _t(np.asarray(mean, np.float32).reshape(-1))
         out[f"{name}_std"] = _t(np.asarray(std, np.float32).reshape(-1))
     return out
+
+
+def _optax_states(state) -> Iterator[Any]:
+    """Every NamedTuple inside an optax state (chains and
+    ``inject_hyperparams`` nest them in tuples)."""
+    if hasattr(state, "_fields"):
+        yield state
+        children = [getattr(state, f) for f in state._fields]
+    elif isinstance(state, (tuple, list)):
+        children = state
+    else:
+        return
+    for c in children:
+        yield from _optax_states(c)
+
+
+def opt_state_from_jax(opt_state: Any,
+                       to_state_dict: Callable[[Tree], Dict[str, torch.Tensor]],
+                       names: Sequence[str],
+                       param_groups: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """An optax state -> the ``state_dict`` of the port's optimizer
+    (``train/optim.py``: torch Adam, AdamW or SGD over the parameters
+    ``names``, in ``model.named_parameters()`` order).
+
+    Adam's ``mu``/``nu``/``count`` become ``exp_avg``/``exp_avg_sq``/
+    ``step`` and SGD's momentum ``trace`` the ``momentum_buffer``; each
+    tree goes through ``to_state_dict`` (``odom_state_dict_from_jax`` or
+    ``fg_state_dict_from_jax``, permutations of the entries), so the GRU's
+    hidden-side r/z entries, which JAX does not have, are 0.
+    ``param_groups`` is the optimizer's own (``state_dict()["param_groups"]``).
+    """
+    found = list(_optax_states(opt_state))
+    adam = [s for s in found if {"mu", "nu", "count"} <= set(s._fields)]
+    trace = [s for s in found if "trace" in s._fields]
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    if adam:
+        s = adam[0]
+        mu, nu = to_state_dict(s.mu), to_state_dict(s.nu)
+        step = torch.tensor(float(np.asarray(s.count)))
+        for i, n in enumerate(names):
+            state[i] = {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+    elif trace:
+        buf = to_state_dict(trace[0].trace)
+        for i, n in enumerate(names):
+            state[i] = {"momentum_buffer": buf[n]}
+    return {"state": state, "param_groups": [dict(g) for g in param_groups]}

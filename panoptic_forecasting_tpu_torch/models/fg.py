@@ -1,5 +1,5 @@
 """Foreground forecaster: coupled GRU + ConvLSTM rollouts over MaskRCNN
-ROI features, then the mask head. Inference only.
+ROI features, then the mask head; its training losses.
 
 Counterpart of ``panoptic_forecasting_tpu/models/fg.py`` (reference
 ``FGModel``, fg_model.py:21-746): a trajectory GRU encoder over
@@ -9,6 +9,18 @@ trajectory feature; re-anchoring at the last input frame; a coupled
 decoder of ``out_t`` steps (Python loops in place of the JAX ``nn.scan``)
 in which each branch feeds the other; the mask head at the requested
 output step, its class channel selected.
+
+``loss`` is JAX's (models/fg.py:446-541, reference losses.py): per sample
+``traj_coef`` × the masked smooth-l1 (or mse) of the unnormalised
+trajectory and depth over the last input frame and the ``out_t`` outputs,
+plus ``mask_distill_coef`` × the masked mse of the predicted ROI features
+against the future ones; with the metrics ``traj_2d_loss``,
+``center_pixel_l2``, ``center_pixel_fde``, ``size_pixel_l1``,
+``depth_l2`` and ``mask_distill_loss``. The mask head takes no part in it
+(no gradient reaches it, as in JAX). ``model.mask_head.
+maskrcnn_pretrain_path`` names detectron2 mask-head weights, loaded by
+``load_pretrained`` (JAX: ``init``); a missing file is warned about and
+the seeded weights stay.
 
 Only the model options the shipped configs use are ported (GRU, f32,
 instance and trajectory features both on); ``only_loc_feats``,
@@ -24,6 +36,8 @@ c-major as the reference does.
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from .base import LOSS_FNS
 from .convlstm import ConvLSTMStack
 from .layers import MLP, GRUCell
 from .mask_head import MaskRCNNConvUpsampleHead
@@ -83,6 +98,19 @@ class FGModel(nn.Module):
             unported.append("compute_dtype bf16")
         if unported:
             raise NotImplementedError(f"fg options not ported: {unported}")
+        self.traj_coef = float(m.get("traj_coef", 1.0))
+        self.mask_distill_coef = float(m.get("mask_distill_coef", 1.0))
+        loss_type = m.get("loss_type", "smoothl1")
+        key = {"smoothl1": "smooth_l1", "mse": "mse"}.get(loss_type)
+        if key is None:
+            raise ValueError(f"loss_type not recognized: {loss_type}")
+        self.loss_fn = LOSS_FNS[key]
+        self.maskrcnn_pretrain_path = mh.get("maskrcnn_pretrain_path")
+        if self.maskrcnn_pretrain_path and not os.path.exists(
+                self.maskrcnn_pretrain_path):
+            warnings.warn(f"mask head pretrain {self.maskrcnn_pretrain_path} "
+                          "not found; seeded init")
+            self.maskrcnn_pretrain_path = None
         self.use_odometry = bool(m.get("use_odometry"))
         self.use_depth_inp = bool(m.get("use_depth_inp"))
         self.use_depth_sorting = bool(m.get("use_depth_sorting"))
@@ -124,6 +152,15 @@ class FGModel(nn.Module):
                 np.asarray(std, np.float32).reshape(-1)))
         self.eval()
         self.to(resolve_device(device))
+
+    def load_pretrained(self) -> None:
+        """detectron2 ``roi_heads.mask_head.*`` weights into the mask head,
+        when the config names a file that exists."""
+        if self.maskrcnn_pretrain_path:
+            from .torch_import import load_maskrcnn_head_pickle
+
+            self.mask_head.load_state_dict(
+                load_maskrcnn_head_pickle(self.maskrcnn_pretrain_path))
 
     # -- normalisation -----------------------------------------------------
     def _full_stats(self):
@@ -192,31 +229,35 @@ class FGModel(nn.Module):
             feat_steps.append(cur_feats)
         return torch.stack(trajs, 1), torch.stack(feat_steps, 1)
 
-    @torch.no_grad()
-    def forward(self, inputs: Dict[str, Any], out_t: int) -> Dict[str, torch.Tensor]:
-        """inputs: the dense fg batch with a leading instance axis
-        (trajectories, bbox_masks, bbox_vel_masks, depths, depth_masks,
-        feats, odometry, classes, output_inds). Returns JAX layouts:
-        trajectories (N, out_t+1, D), mask feats NHWC, masks (N, 28, 28)."""
-        dev = self.traj_mean.device
+    def _tensor(self, batch, name) -> torch.Tensor:
+        return torch.as_tensor(batch[name], device=self.traj_mean.device).to(
+            torch.float32)
 
-        def f32(name):
-            return torch.as_tensor(inputs[name], device=dev).to(torch.float32)
-
-        trajs = f32("trajectories")[..., :8]
-        feats = f32("feats")
+    def _feats(self, batch, name) -> torch.Tensor:
+        """ROI feats (..., C, hw, hw) f32; an NHWC array is moved."""
+        feats = self._tensor(batch, name)
         c = self.mask_feat_channels
-        if feats.shape[-3] != c and feats.shape[-1] == c:  # NHWC -> NCHW
+        if feats.shape[-3] != c and feats.shape[-1] == c:
             feats = feats.movedim(-1, -3)
+        return feats
+
+    def _run(self, inputs: Dict[str, Any], out_t: int, heads: bool = True
+             ) -> Dict[str, torch.Tensor]:
+        """The rollout, differentiable: trajectories (N, out_t+1, D) and
+        feats (N, out_t+1, C, hw, hw); with ``heads`` the mask head at
+        ``output_inds`` too."""
+        dev = self.traj_mean.device
+        trajs = self._tensor(inputs, "trajectories")[..., :8]
+        feats = self._feats(inputs, "feats")
         inp_t = trajs.shape[1]
-        bbox_masks = f32("bbox_masks")[:, :inp_t]
-        vel_masks = f32("bbox_vel_masks")[:, :inp_t]
-        depths = (f32("depths")[..., : self.depth_dim]
+        bbox_masks = self._tensor(inputs, "bbox_masks")[:, :inp_t]
+        vel_masks = self._tensor(inputs, "bbox_vel_masks")[:, :inp_t]
+        depths = (self._tensor(inputs, "depths")[..., : self.depth_dim]
                   if self.use_depth_inp else None)
         normalized = self._norm_traj(trajs, depths)
         emask = expand_traj_mask(bbox_masks, vel_mask=vel_masks)
         if self.use_depth_inp:
-            dmask = f32("depth_masks")
+            dmask = self._tensor(inputs, "depth_masks")
             dmask = dmask.reshape(dmask.shape[0], dmask.shape[1])
             emask = torch.cat([emask, expand_traj_mask(dmask, result_size=1)], -1)
         normalized = normalized * emask
@@ -225,7 +266,7 @@ class FGModel(nn.Module):
                bbox_masks[..., None]]
         odom_out = None
         if self.use_odometry:
-            odom = f32("odometry")
+            odom = self._tensor(inputs, "odometry")
             odom = (odom - self.odom_mean) / torch.where(
                 self.odom_std == 0, torch.ones_like(self.odom_std),
                 self.odom_std)
@@ -234,17 +275,101 @@ class FGModel(nn.Module):
         traj_preds, feat_preds = self._rollout(
             torch.cat(enc, -1), feats, odom_out, int(out_t)
         )
+        out = {"normalized_trajectory": traj_preds,
+               "unnormalized_trajectory": self._unnorm_traj(traj_preds),
+               "feats": feat_preds}
+        if heads:
+            out_inds = torch.as_tensor(inputs["output_inds"], device=dev).reshape(-1).long()
+            rows = torch.arange(traj_preds.shape[0], device=dev)
+            out["output_feats"] = feat_preds[:, -out_t:][rows, out_inds]
+            mask_logits = self.mask_head(out["output_feats"])
+            classes = torch.as_tensor(inputs["classes"], device=dev).reshape(-1).long()
+            out["masks"] = mask_logits[rows, classes.clamp(0, 7)]
+        return out
 
-        out_inds = torch.as_tensor(inputs["output_inds"], device=dev).reshape(-1).long()
-        rows = torch.arange(traj_preds.shape[0], device=dev)
-        out_feats = feat_preds[:, -out_t:][rows, out_inds]
-        mask_logits = self.mask_head(out_feats)
-        classes = torch.as_tensor(inputs["classes"], device=dev).reshape(-1).long()
-        masks = mask_logits[rows, classes.clamp(0, 7)]
+    @torch.no_grad()
+    def forward(self, inputs: Dict[str, Any], out_t: int) -> Dict[str, torch.Tensor]:
+        """inputs: the dense fg batch with a leading instance axis
+        (trajectories, bbox_masks, bbox_vel_masks, depths, depth_masks,
+        feats, odometry, classes, output_inds). Returns JAX layouts:
+        trajectories (N, out_t+1, D), mask feats NHWC, masks (N, 28, 28)."""
+        out = self._run(inputs, out_t)
         return {
-            "normalized_trajectory": traj_preds,
-            "unnormalized_trajectory": self._unnorm_traj(traj_preds),
-            "mask_feats": feat_preds.permute(0, 1, 3, 4, 2),
-            "output_feats": out_feats.permute(0, 2, 3, 1),
-            "masks": masks,
+            "normalized_trajectory": out["normalized_trajectory"],
+            "unnormalized_trajectory": out["unnormalized_trajectory"],
+            "mask_feats": out["feats"].permute(0, 1, 3, 4, 2),
+            "output_feats": out["output_feats"].permute(0, 2, 3, 1),
+            "masks": out["masks"],
         }
+
+    # -- losses (JAX models/fg.py:446-541) ---------------------------------
+    def loss(self, batch: Dict[str, Any]):
+        """A dense instance batch ``(B, T, ...)`` -> (mean loss, metrics of
+        per-sample (B,) vectors, ``loss`` among them), differentiable."""
+        inputs, labels = batch["inputs"], batch["labels"]
+        out_t = int(np.shape(labels["trajectories"])[1])
+        preds = self._run({**inputs, "output_inds": labels["output_inds"]},
+                          out_t, heads=False)
+        traj_loss, metrics = self._traj_loss(
+            inputs, labels, preds["unnormalized_trajectory"], out_t)
+        distill = self._mask_loss(inputs, labels, preds["feats"], out_t)
+        metrics["mask_distill_loss"] = distill
+        per_sample = self.traj_coef * traj_loss + self.mask_distill_coef * distill
+        metrics["loss"] = per_sample
+        return per_sample.mean(), metrics
+
+    def _traj_loss(self, inputs, labels, upreds, out_t):
+        bbox_masks = self._tensor(inputs, "bbox_masks")
+        vel_masks = self._tensor(inputs, "bbox_vel_masks")
+        inp_tr = self._tensor(inputs, "trajectories")[..., :8]
+        lab_tr = self._tensor(labels, "trajectories")[..., :8]
+        b = upreds.shape[0]
+
+        tmask = expand_traj_mask(bbox_masks, vel_mask=vel_masks)[:, -(out_t + 1):]
+        gt = torch.cat([inp_tr[:, -1:], lab_tr], 1)
+        if self.use_depth_inp:
+            dd = self.depth_dim
+            inp_d = self._tensor(inputs, "depths")[..., :dd]
+            lab_d = self._tensor(labels, "depths")[..., :dd]
+            gt_d = torch.cat([inp_d[:, -1:], lab_d], 1)
+            dm = torch.cat([self._tensor(inputs, "depth_masks"),
+                            self._tensor(labels, "depth_masks")], 1)
+            dm = dm.reshape(dm.shape[0], dm.shape[1], -1)[..., 0]
+            gt_dm = expand_traj_mask(dm, result_size=1)[:, -(out_t + 1):, :dd]
+            gt = torch.cat([gt, gt_d], -1)
+            tmask = torch.cat([tmask, gt_dm], -1)
+
+        per_elem = self.loss_fn(upreds, gt) * tmask
+        msum = tmask.reshape(b, -1).sum(-1)
+        traj_loss = per_elem.reshape(b, -1).sum(-1) / (msum + 1e-8)
+
+        # metrics (losses.py:119-147)
+        bm = bbox_masks[:, -(out_t + 1):]
+        bm_n = bm.sum(-1) + 1e-8
+        pred_cwh, gt_cwh = upreds[..., :4], gt[..., :4]
+        center_l2 = torch.linalg.vector_norm(pred_cwh[..., :2] - gt_cwh[..., :2], dim=-1)
+        fde = torch.linalg.vector_norm(pred_cwh[:, -1, :2] - gt_cwh[:, -1, :2], dim=-1)
+        size_l1 = (pred_cwh[..., 2:4] - gt_cwh[..., 2:4]).abs() * bm[..., None]
+        out = {
+            "traj_2d_loss": traj_loss,
+            "center_pixel_l2": (center_l2 * bm).sum(-1) / bm_n,
+            "center_pixel_fde": fde * bm[:, -1],
+            "size_pixel_l1": size_l1.reshape(b, -1).sum(-1) / bm_n,
+        }
+        if self.use_depth_inp:
+            depth_l2 = torch.linalg.vector_norm(upreds[..., 8:9] - gt_d[..., :1], dim=-1)
+            dmm = gt_dm[..., 0]
+            n = dmm.sum(-1)
+            out["depth_l2"] = (depth_l2 * dmm).sum(-1) / torch.where(
+                n == 0, torch.ones_like(n), n)
+        return traj_loss, out
+
+    def _mask_loss(self, inputs, labels, feat_preds, out_t):
+        feat_masks = self._tensor(inputs, "feat_masks")[:, -(out_t + 1):]
+        target = torch.cat([self._feats(inputs, "feats")[:, -1:],
+                            self._feats(labels, "feats")], 1)
+        diff = (feat_preds - target) ** 2
+        b, t = diff.shape[:2]
+        per_t = diff.reshape(b, t, -1).sum(-1) * feat_masks
+        denom = feat_masks.sum(-1) * float(np.prod(diff.shape[2:])) + 1e-8
+        return per_t.sum(-1) / denom

@@ -36,7 +36,15 @@ class MLP(nn.Sequential):
 
 
 class GRUCell(nn.Module):
-    """One torch ``nn.GRU`` layer (gate rows r | z | n), stepped by hand."""
+    """One torch ``nn.GRU`` layer (gate rows r | z | n), stepped by hand.
+
+    The JAX package's flax cell has no hidden-side r/z biases: its r/z
+    bias is one vector (``bias_ih_l0[:2H]`` here, ``models/convert.py``).
+    So ``bias_hh_l0[:2H]`` gets a zero gradient (a hook on the parameter)
+    and is kept out of every update (``frozen``, ``train/optim.py``); a
+    non-zero value from a reference ``.pt`` stays a constant, and the sum
+    JAX trains moves through ``bias_ih_l0`` alone.
+    """
 
     def __init__(self, in_features: int, hidden: int):
         super().__init__()
@@ -48,6 +56,15 @@ class GRUCell(nn.Module):
         bound = hidden ** -0.5
         for w in (self.weight_ih_l0, self.weight_hh_l0):
             nn.init.uniform_(w, -bound, bound)
+        self.bias_hh_l0.register_hook(self._no_rz_grad)
+
+    def _no_rz_grad(self, grad: torch.Tensor) -> torch.Tensor:
+        return torch.cat([grad.new_zeros(2 * self.hidden), grad[2 * self.hidden:]])
+
+    def frozen(self):
+        """[(parameter, slice)] that training leaves as it is: the
+        hidden-side r/z biases."""
+        return [(self.bias_hh_l0, slice(0, 2 * self.hidden))]
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         i_r, i_z, i_n = F.linear(x, self.weight_ih_l0, self.bias_ih_l0).chunk(3, -1)

@@ -1,5 +1,4 @@
 """Egomotion (odometry) forecaster: GRU encoder + autoregressive decoder.
-Inference only.
 
 Counterpart of ``panoptic_forecasting_tpu/models/odom.py`` (reference
 ``OdomModel``, models/odom/odom_model.py:12-121): an optional MLP input
@@ -13,7 +12,9 @@ in for the JAX ``nn.scan``s.
 Submodule and buffer names follow the reference ``state_dict``: ``rnn.*``
 (the GRU layer), ``out.{k}.*`` (the head), ``inp_emb.{k}.*`` (the
 embedding), ``odom_mean``/``odom_std`` (the statistics, mean 0 and std 1
-when the data card has none, as in JAX). The loss is not ported yet.
+when the data card has none, as in JAX). ``loss`` is JAX's
+(models/odom.py:151-160): the per-sample mean of ``loss_fn`` (mse or
+smooth-l1), in normalised space with ``use_normalized_loss``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..device import DeviceLike, resolve_device
+from .base import LOSS_FNS
 from .layers import MLP, GRUCell
 
 
@@ -41,6 +43,11 @@ class OdomModel(nn.Module):
         if self.predict_type not in ("direct", "offset"):
             raise ValueError(f"predict_type not recognized: {self.predict_type}")
         self.normalize_input = bool(m.get("normalize_input"))
+        self.use_normalized_loss = bool(m.get("use_normalized_loss"))
+        loss_type = m.get("loss_fn", "mse")
+        if loss_type not in LOSS_FNS:
+            raise ValueError(f"loss_fn not recognized: {loss_type}")
+        self.loss_fn = LOSS_FNS[loss_type]
         self.output_len = int(cfg.get("data", {}).get("output_len", 9))
         hidden = int(m.get("rnn_hidden", 128))
         emb = list(m.get("inp_emb_layers") or [])
@@ -79,16 +86,33 @@ class OdomModel(nn.Module):
             ys.append(cur)
         return torch.stack(ys, 1)
 
-    @torch.no_grad()
-    def forward(self, inp_odom) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, T, 2) raw odometry -> (unnormalised, normalised) forecasts,
-        each (B, output_len, 2)."""
-        x = torch.as_tensor(inp_odom, device=self.odom_mean.device).to(torch.float32)
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.odom_mean.device).to(torch.float32)
+
+    def _forecast(self, inp_odom) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self._tensor(inp_odom)
         if self.normalize_input:
             y = self.rollout(self._normalize(x))
             return self._unnormalize(y), y
         y = self.rollout(x)
         return y, self._normalize(y)
+
+    @torch.no_grad()
+    def forward(self, inp_odom) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, 2) raw odometry -> (unnormalised, normalised) forecasts,
+        each (B, output_len, 2)."""
+        return self._forecast(inp_odom)
+
+    def loss(self, batch: Dict[str, Any]):
+        """-> (mean loss, {"loss": per-sample loss (B,)}), differentiable."""
+        preds, normalized = self._forecast(batch["inputs"]["odometry"])
+        lab = self._tensor(batch["labels"]["odometry"])
+        if self.use_normalized_loss:
+            per_elem = self.loss_fn(normalized, self._normalize(lab))
+        else:
+            per_elem = self.loss_fn(preds, lab)
+        per_sample = per_elem.reshape(per_elem.shape[0], -1).mean(1)
+        return per_sample.mean(), {"loss": per_sample}
 
     def predict(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         preds, _ = self(batch["inputs"]["odometry"])
