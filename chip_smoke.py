@@ -10,7 +10,8 @@ evaluate_panoptic}``, phases 12-13), the paper's staged chain
 prepare_gt_nofg -> prepare_bg_data -> export_segmentation ->
 export_panoptic / export_instances -> evaluate_panoptic /
 evaluate_instances -> viz_panoptic (phase 14), training of the odometry
-and fg models (``cli.train``, phase 15) and the single-call panoptic
+and fg models (``cli.train``, phase 15) and of the bg model, whose
+trained weights then serve through K2 (phase 16), and the single-call panoptic
 forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
@@ -133,19 +134,46 @@ Phases (any failure exits non-zero):
      fixture with a train split (>= 32 tracks), 2 epochs of 10 steps,
      then resumed for a third: it continues at step 20 with the saved
      Adam state (30 Adam steps after it), and its epoch agrees with a
-     straight 3-epoch run within 1e-3 of each loss (cuDNN's backward is
-     not deterministic); the losses finite. Then 20 steps of each model
+     straight 3-epoch run within 1e-3 of each loss (the fg runs take
+     cuDNN's deterministic algorithms); the losses finite. Then 20 steps of each model
      on one fixed batch (the fg loss must fall): ms per step by CUDA
      events (median and range after 3 of warm-up), samples/s, peak
      memory above the earlier phases' tensors, device-busy ms per step
      from torch.profiler over 5 steps and kernel launches per step, with
      the card's name and power limit; and one fg step at narrow widths
      on the card against the CPU: losses within 1e-4 relative, each
-     parameter within lr·|Δg|/eps + 4 ulp (Adam's first step).
+     parameter within lr·|Δg|/eps + 4 ulp (Adam's first step);
+ 16. bg training (``cli.train``) with configs/bg/bg_train.yaml at full
+     width (FCHarDNet-70, 36 inputs, 11 classes, batch 8 of 800x800
+     scale-jittered crops, SGD; val batch 4 at 1024x2048) on a
+     1024x2048 ``write_bg_fixture`` tree (both gap groups, 8 train
+     samples, depth through the in-memory store), the launch counts set
+     to 0 just before each run and read just after (0 of every kernel):
+     2 epochs of 3 steps, resumed for a third, which agrees with a
+     straight 3-epoch run within 1e-3 of each loss (cuDNN deterministic
+     for these runs) and continues from the saved BN statistics and SGD
+     momentum; 20 steps on one fixed batch (the loss must fall): ms per
+     step by CUDA events, images/s, peak memory of the step's own,
+     device-busy ms and share, launches per step, the step's operations
+     (``torch.utils.flop_counter``) and TFLOP/s against the f32 bound;
+     the loader's ms per batch apart from the step; one step at crop
+     128, batch 2 on the card against the CPU and the CPU in float64
+     (loss within 1e-4 relative; the card's running statistics and
+     gradient no farther from the float64 step than twice the CPU's f32
+     step is, + 1e-5 of each statistic tensor's largest entry, + 1e-3
+     relative L2 over all gradients: HarDNet's f32 step at batch 2 is
+     itself ~1e-1 of a tensor's largest entry from float64, as ReLU
+     inputs sit within rounding of their kinks; each tensor's largest
+     gaps printed); the trained ``best_model``
+     served by ``export_segmentation`` (folded: one onehot_stem_conv per
+     bg batch and no other kernel), its class maps equal to the same
+     weights' unfolded eval graph but at top-2 logit gaps < 1e-3 (fewer
+     than 1e-3 of pixels).
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (both K1 entry points, K2, K3 and each K4 probe) and the CLI's,
-the scoring's, the staged chain's and the training's readings, and last
+the scoring's, the staged chain's and the training's readings (bg's
+under ``train.bg``), and last
 a JSON line
 {"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
@@ -1656,6 +1684,17 @@ def train_argv(kind, wd, data_dir, *sets):
     return argv
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms within the block, for training
+    runs whose results are compared with each other."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
 def train_cli_run(argv, store):
     """cli.train.main on the card with the launch counts set to 0 just
     before and read just after: (result, launches, host seconds)."""
@@ -1689,11 +1728,28 @@ def fg_step_flops(model, batch) -> float:
     return 3 * sum(2 * conv.weight.numel() * b * hw2 * n for conv, n in calls)
 
 
-def train_steps(argv, store, dev, steps=20, warmup=3):
+CONV_KERNELS = ("conv", "gemm", "xmma", "cudnn", "wgrad", "dgrad", "fprop")
+
+
+def kernel_kinds(prof):
+    """Device ms of one profiled call by kind of kernel: convolutions and
+    matrix products (cuDNN's and cuBLAS's kernels, by name), reductions,
+    and the rest (elementwise passes and copies)."""
+    out = {"conv_gemm": 0.0, "reduce": 0.0, "other": 0.0}
+    for name, (_, us) in prof.items():
+        low = name.lower()
+        kind = ("conv_gemm" if any(k in low for k in CONV_KERNELS) else
+                "reduce" if "reduce" in low else "other")
+        out[kind] += us / 1e3
+    return out
+
+
+def train_steps(argv, store, dev, steps=20, warmup=3, flops=None):
     """Steps of the config's model (seeded) on one fixed training batch on
     the card: each step's ms by CUDA events after ``warmup``, the losses,
     the peak memory, and the device-busy ms per step from torch.profiler
-    over 5 more steps."""
+    over 5 more steps; ``flops(model, batch)`` counts a step's operations
+    (default: ``fg_step_flops`` for fg, none otherwise)."""
     with store_readers(store):
         cfg, data, model = setup(load_config(argv))
         batch = next(iter(data.loader("train", cfg, seed=SEED)))
@@ -1724,17 +1780,21 @@ def train_steps(argv, store, dev, steps=20, warmup=3):
     ms = sorted(a.elapsed_time(b) for a, b in events)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     busy = device_ms(step, 5)
-    launches = sum(n for n, _ in kernel_profile(step, 1).values())
+    prof = kernel_profile(step, 1)
+    launches = sum(n for n, _ in prof.values())
     losses = torch.stack(losses).cpu().numpy()
     bs = int(cfg["training"]["batch_size"])
     med = ms[len(ms) // 2]
-    flops = fg_step_flops(model, batch) if cfg["task"] == "fg" else None
+    if flops is None and cfg["task"] == "fg":
+        flops = fg_step_flops
+    flops = flops(model, batch) if flops is not None else None
     return {"batch": bs, "ms_median": med, "ms_min": ms[0], "ms_max": ms[-1],
             "conv_tflop": flops and flops / 1e12,
             "conv_tflop_per_s": flops and flops / med / 1e9,
             "conv_f32_bound_ms": flops and flops / F32_FLOP_PER_S * 1e3,
             "samples_per_s": bs / med * 1e3, "peak_gib": peak,
             "busy_ms": busy, "busy_share": busy / med, "kernels_per_step": launches,
+            "device_ms_by_kind": kernel_kinds(prof),
             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
             "losses_finite": bool(np.isfinite(losses).all())}
 
@@ -1798,18 +1858,21 @@ def train_phase(dev, root, card):
     wd = os.path.join(root, "fg_run")
     fg_argv = train_argv("fg", wd, fg_dir, ("training.steps_per_epoch", 10),
                          ("training.num_epochs", 2))
-    fg, fg_launches, fg_s = train_cli_run(fg_argv, fg_store)
-    saved = ckpt.load_trainer_state(wd)
-    resumed, resume_launches, resume_s = train_cli_run(
-        fg_argv + ["--continue_training", "--set", "training.num_epochs", "3"], fg_store)
+    # the fg runs are compared (resumed against a straight 3-epoch run):
+    # cuDNN's default backward convolutions are not deterministic (the gap
+    # reached 1.079e-3 in one run of this script), so these take its
+    # deterministic ones; the resumed epoch must agree within 1e-3
+    with cudnn_deterministic():
+        fg, fg_launches, fg_s = train_cli_run(fg_argv, fg_store)
+        saved = ckpt.load_trainer_state(wd)
+        resumed, resume_launches, resume_s = train_cli_run(
+            fg_argv + ["--continue_training", "--set", "training.num_epochs", "3"],
+            fg_store)
+        straight, _, _ = train_cli_run(train_argv(
+            "fg", os.path.join(root, "fg_straight"), fg_dir,
+            ("training.steps_per_epoch", 10), ("training.num_epochs", 3)), fg_store)
     after = ckpt.load_trainer_state(wd)
     adam_steps = int(after["opt_state"]["state"][0]["step"])
-    # a straight 3-epoch run: cuDNN's backward convolutions are not
-    # deterministic, so the resumed epoch agrees within a tolerance (1e-3
-    # of each loss), not bit for bit as on the CPU
-    straight, _, _ = train_cli_run(train_argv(
-        "fg", os.path.join(root, "fg_straight"), fg_dir,
-        ("training.steps_per_epoch", 10), ("training.num_epochs", 3)), fg_store)
     resume_gap = max(abs(resumed["history"][0][split]["loss"]
                          - straight["history"][2][split]["loss"])
                      / abs(straight["history"][2][split]["loss"])
@@ -1825,7 +1888,8 @@ def train_phase(dev, root, card):
             or after["step"] != 30 or adam_steps != 30):
         raise SystemExit("the resumed fg run did not continue from the saved step "
                          "and optimizer state")
-    print(f"[train] fg epoch 3 resumed against straight: losses {resume_gap:.3e} "
+    print(f"[train] fg epoch 3 resumed against straight (cuDNN deterministic): losses "
+          f"{resume_gap:.3e} "
           f"apart relative (limit 1e-3), parameters at most {resume_param_gap:.3e}")
     if not resume_gap < 1e-3:
         raise SystemExit("the resumed fg epoch differs from the straight run's")
@@ -1872,6 +1936,265 @@ def train_phase(dev, root, card):
                              "fg_resumed": resume_launches},
                 "phase_s": phase_s}
     print(f"[train] phase 15 took {phase_s:.1f} s")
+    return readings
+
+
+# ---- 16. bg training ------------------------------------------------------------
+
+BG_SNIPPETS = 4  # per split; two gap groups -> 8 train samples, one full batch
+BG_STEPS = 3  # steps per epoch of the cli.train runs
+BG_NARROW = 128  # crop of the card-against-CPU step (deepest BNs: 2x2 at batch 2)
+
+
+def bg_train_argv(wd, data, *sets):
+    """cli.train's arguments: configs/bg/bg_train.yaml at full width (batch
+    8, crop 800, scale 0.5-2.0, val batch 4 at the fixture's 1024x2048) on
+    a ``write_bg_fixture`` tree, the depth statistics file in ``wd``, with
+    dotted ``sets`` (path, value pairs)."""
+    argv = ["--working_dir", wd, "--config_file",
+            os.path.join(REPO, "configs", "bg", "bg_train.yaml"),
+            "--set", "data.data_dir", "[" + ",".join(data["data_dir"]) + "]",
+            "--set", "data.depth_norm_params_file",
+            os.path.join(wd, "depth_norm_params.npz")]
+    for key in ("gt_dir", "depth_h5_path", "cityscapes_dir"):
+        argv += ["--set", f"data.{key}", data[key]]
+    for path, value in sets:
+        argv += ["--set", path, str(value)]
+    return argv
+
+
+def step_flops(model, batch) -> float:
+    """Operations of one training step's forward and backward on
+    ``batch`` as ``torch.utils.flop_counter`` counts them (convolutions,
+    their input and weight gradients, and the resize matmuls)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        model.loss(batch)[0].backward()
+    for p in model.parameters():
+        p.grad = None
+    return float(fc.get_total_flops())
+
+
+def loader_ms(argv, store, batches=6):
+    """Host ms per batch of the training loader (its threads and
+    prefetch as the config sets them) over ``batches`` batches after the
+    first, apart from any step: (median, min, max)."""
+    with store_readers(store):
+        cfg, data, _ = setup(load_config(argv + [
+            "--set", "training.steps_per_epoch", str(batches + 1)]))
+        loader = data.loader("train", cfg, seed=SEED)
+        loader.set_epoch(1)
+        stamps = []
+        for _ in loader:
+            stamps.append(time.perf_counter())
+    gaps = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+    return gaps[len(gaps) // 2], gaps[0], gaps[-1]
+
+
+def bg_narrow_step(argv, store, dev):
+    """One bg step from the seeded weights on one narrow batch (crop
+    ``BG_NARROW``, batch 2) on the card, on the CPU and on the CPU in
+    float64: (losses, loss relative difference card/CPU, the card's and
+    the CPU's largest running-statistic distance from float64 over its
+    tensor's largest entry, per tensor the card's and the CPU's f32
+    gradient distance from float64 over the tensor's largest entry, and
+    the same over all parameters as relative L2 distances: card and CPU
+    from float64, card from CPU)."""
+    sets = ["--set", "data.crop_size", str(BG_NARROW), "--set", "training.batch_size", "2"]
+    with store_readers(store):
+        cfg, data, _ = setup(load_config(argv + sets + ["--set", "platform", "cpu"]))
+        batch = next(iter(data.loader("train", cfg, seed=SEED)))
+    out = {}
+    for name, d, dtype in (("cuda", dev, torch.float32),
+                           ("cpu", torch.device("cpu"), torch.float32),
+                           ("cpu64", torch.device("cpu"), torch.float64)):
+        model = build_model(cfg, data.card, d)
+        init_weights(model, SEED)
+        model.to(dtype).train()
+        loss, _ = model.loss(to_device(batch, d))
+        loss.backward()
+        out[name] = (float(loss.detach()),
+                     {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
+                     {n: b.detach().double().cpu() for n, b in model.named_buffers()
+                      if "running" in n})
+    (lg, gg, sg), (lc, gc, sc), (_, g64, s64) = out["cuda"], out["cpu"], out["cpu64"]
+    gaps = {n: (float((gg[n] - g64[n]).abs().max() / g64[n].abs().max()),
+                float((gc[n] - g64[n]).abs().max() / g64[n].abs().max())) for n in g64}
+    stat_gap = tuple(max(float((s[n] - s64[n]).abs().max() / s64[n].abs().max())
+                         for n in s64) for s in (sg, sc))
+
+    def l2(a, b):
+        return (sum(float((a[n] - b[n]).square().sum()) for n in b)
+                / sum(float(b[n].square().sum()) for n in b)) ** 0.5
+
+    return ({"cuda": lg, "cpu": lc}, abs(lg - lc) / abs(lc), stat_gap, gaps,
+            {"cuda_f64": l2(gg, g64), "cpu_f64": l2(gc, g64), "cuda_cpu": l2(gg, gc)})
+
+
+def serve_trained(wd, data, store, dev):
+    """The trained ``wd/best_model`` through the bg canvas export
+    (``export_segmentation`` with configs/bg/bg_val_short.yaml on the
+    fixture's gap-3 group, folded: K2), counted; its class maps against
+    the same weights' unfolded eval-mode graph on the same inputs.
+    -> (launches, batches, frames, ms per frame, pixels that differ,
+    of them where the unfolded top-2 logits are within 1e-3)."""
+    bg = conf("bg", "bg_val_short.yaml")
+    short = [d for d in data["data_dir"] if "_gap3_" in d]
+    bg["data"].update(data_dir=short, gap_len=[3], gt_dir=data["gt_dir"],
+                      depth_h5_path=data["depth_h5_path"],
+                      cityscapes_dir=data["cityscapes_dir"])
+    cfg_path = dump(os.path.join(wd, "bg_serve.yaml"), bg)
+    argv = ["--working_dir", wd, "--config_file", cfg_path, "--set", "no_convert",
+            "true", "--set", "export_name", "bg_trained"]
+    with store_readers(store):
+        report, launches, secs = counted(export_segmentation.main, argv)
+        cfg, task_data, model = setup(load_config(argv), test=True)
+        model = restore_params(cfg, model).eval()
+        loader = task_data.loader("val", cfg, test=True)
+        maps = canvases(os.path.join(wd, "bg_trained"))
+        differ = near_tie = frames = batches = 0
+        for batch in loader:
+            batches += 1
+            logits = model(batch["inputs"])
+            top2 = torch.topk(logits, 2, dim=1).values
+            ref = logits.argmax(1).cpu().numpy()
+            tie = ((top2[:, 0] - top2[:, 1]) < 1e-3).cpu().numpy()
+            meta = batch["meta"]
+            for i in range(len(ref)):
+                frames += 1
+                got = maps[f"{meta['city'][i]}_{meta['seq'][i]}_"
+                           f"{int(meta['target_frame'][i]):06d}"]
+                mis = got != ref[i]
+                differ += int(mis.sum())
+                near_tie += int((mis & tie[i]).sum())
+    return (launches, batches, frames, 1e3 * secs / max(frames, 1), differ, near_tie,
+            frames * ref.shape[-2] * ref.shape[-1])
+
+
+def bg_train_phase(dev, root, card):
+    """Phase 16: cli.train on configs/bg/bg_train.yaml at full width on the
+    card, resumed; fixed-batch steps; the loader apart; one narrow step on
+    the card against the CPU; the trained weights served through K2."""
+    ts0 = time.perf_counter()
+    bg_dir = os.path.join(root, "bg_train")
+    data, store = synthetic.write_bg_fixture(bg_dir, n_snippets=BG_SNIPPETS, height=H,
+                                             width=W, seed=SEED, gap_lens=(9, 3))
+    fixture_s = time.perf_counter() - ts0
+    steps = ("training.steps_per_epoch", BG_STEPS)
+    wd = os.path.join(root, "bg_run")
+    # the resumed epoch is compared with the straight run's
+    with cudnn_deterministic():
+        first, first_launches, first_s = train_cli_run(
+            bg_train_argv(wd, data, steps, ("training.num_epochs", 2)), store)
+        saved = ckpt.load_trainer_state(wd)
+        resumed, resume_launches, resume_s = train_cli_run(bg_train_argv(
+            wd, data, steps, ("training.num_epochs", 3)) + ["--continue_training"], store)
+        straight, straight_launches, _ = train_cli_run(bg_train_argv(
+            os.path.join(root, "bg_straight"), data, steps, ("training.num_epochs", 3)), store)
+    samples = (len(glob.glob(os.path.join(data["gt_dir"], "train", "*", "*.png")))
+               * len(data["gap_len"]))
+    after = ckpt.load_trainer_state(wd)
+    state = torch.load(os.path.join(wd, ckpt.LATEST), map_location="cpu", weights_only=True)
+    tracked = int(state["model.base.0.norm.num_batches_tracked"])
+    momentum = all("momentum_buffer" in v for v in after["opt_state"]["state"].values())
+    print(f"[train] bg: {samples} train samples; {first['step']} steps in {first_s:.1f} s, "
+          f"resumed at epoch {saved['epoch']} step {saved['step']}: {resumed['step']} "
+          f"steps, BN batches tracked {tracked}, SGD momentum kept {momentum}")
+    if (samples < 8 or first["step"] != 2 * BG_STEPS
+            or (saved["epoch"], saved["step"]) != (3, 2 * BG_STEPS)):
+        raise SystemExit("the bg run took other steps than 2 epochs of "
+                         f"{BG_STEPS} on a full batch")
+    if ([h["epoch"] for h in resumed["history"]] != [3] or resumed["step"] != 3 * BG_STEPS
+            or tracked != 3 * BG_STEPS or not momentum):
+        raise SystemExit("the resumed bg run did not continue from the saved step, "
+                         "BN statistics and SGD momentum")
+    gap = max(abs(resumed["history"][0][split]["loss"]
+                  - straight["history"][2][split]["loss"])
+              / abs(straight["history"][2][split]["loss"]) for split in ("train", "val"))
+    a, b = resumed["model"].state_dict(), straight["model"].state_dict()
+    param_gap = max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+    print(f"[train] bg epoch 3 resumed against straight (cuDNN deterministic): losses "
+          f"{gap:.3e} apart relative (limit 1e-3), state at most {param_gap:.3e}")
+    if not gap < 1e-3:
+        raise SystemExit("the resumed bg epoch differs from the straight run's")
+    launches = {"first": first_launches, "resumed": resume_launches,
+                "straight": straight_launches}
+    launched = {k: v for run in launches.values() for k, v in run.items() if v}
+    print(f"[train] bg kernel launches while training and validating: "
+          f"{json.dumps(launches)}")
+    if launched:
+        raise SystemExit(f"bg training launched a kernel of the port: {launched}")
+
+    argv = bg_train_argv(wd, data, steps)
+    step = train_steps(argv, store, dev, flops=step_flops)
+    print(f"[train] bg step, batch {step['batch']} at 800x800 on the card: median "
+          f"{step['ms_median']:.2f} ms ({step['ms_min']:.2f}-{step['ms_max']:.2f}, CUDA "
+          f"events), {step['samples_per_s']:.1f} images/s, peak {step['peak_gib']:.2f} "
+          f"GiB of the step's own, device busy {step['busy_ms']:.2f} ms "
+          f"({step['busy_share']:.3f} of a step) over {step['kernels_per_step']} kernel "
+          f"launches, loss {step['loss_first']:.5f} -> {step['loss_last']:.5f} over 20 "
+          f"steps on one batch | {card}")
+    kinds = step["device_ms_by_kind"]
+    print(f"[train] bg step: {step['conv_tflop']:.4f} TFLOP (flop_counter), "
+          f"{step['conv_tflop_per_s']:.1f} TFLOP/s; f32 bound (67 TFLOP/s) "
+          f"{step['conv_f32_bound_ms']:.2f} ms; device ms of one profiled step: "
+          f"convolutions and matmuls {kinds['conv_gemm']:.2f}, reductions "
+          f"{kinds['reduce']:.2f}, other (elementwise, copies) {kinds['other']:.2f} "
+          f"| {card}")
+    if not step["losses_finite"] or not step["loss_last"] < step["loss_first"]:
+        raise SystemExit("20 bg steps on one batch did not lower a finite loss")
+    load = loader_ms(argv, store)
+    print(f"[train] bg loader: {load[0]:.1f} ms per batch of 8 (median; {load[1]:.1f}-"
+          f"{load[2]:.1f}), against the step's {step['ms_median']:.1f} ms | {card}")
+
+    # HarDNet's f32 step at batch 2 is itself far from float64 on the CPU
+    # (gradients 1.3e-1 of a tensor's largest entry, 5.6e-2 over all
+    # parameters, statistics 1.4e-4, as this phase prints): ReLU inputs sit
+    # within rounding of their kinks and the deepest BNs see 8 values.
+    # So the card is held to the CPU's float64 step as closely as the
+    # CPU's f32 step is (twice its distance, plus a floor), not entry by
+    # entry; an unbiased running variance would be 1/7 off there.
+    losses, rel, stat_gap, gaps, l2 = bg_narrow_step(argv, store, dev)
+    card_gap = max(g for g, _ in gaps.values())
+    cpu_gap = max(c for _, c in gaps.values())
+    excess = max(l2["cuda_f64"] - (2 * l2["cpu_f64"] + 1e-3),
+                 stat_gap[0] - (2 * stat_gap[1] + 1e-5))
+    print(f"[train] one bg step at crop {BG_NARROW}, batch 2, card against CPU: losses "
+          f"{losses['cuda']!r} / {losses['cpu']!r}, relative difference {rel:.3e} "
+          f"(limit 1e-4); from the CPU's float64 step: running statistics at most "
+          f"{stat_gap[0]:.3e} (card) and {stat_gap[1]:.3e} (CPU) of their tensor's "
+          f"largest entry, gradients at most {card_gap:.3e} (card) and {cpu_gap:.3e} "
+          f"(CPU) of a tensor's largest entry and {l2['cuda_f64']:.3e} (card) and "
+          f"{l2['cpu_f64']:.3e} (CPU) relative L2 over all parameters (card to CPU "
+          f"{l2['cuda_cpu']:.3e}); the card {excess:.3e} over twice the CPU's + 1e-3 "
+          f"(gradients) or + 1e-5 (statistics) (limit 0)")
+    if not rel < 1e-4 or excess > 0:
+        raise SystemExit("the bg step on the card and on the CPU disagree")
+
+    serve = serve_trained(wd, data, store, dev)
+    k2, batches, frames, ms, differ, near_tie, pixels = serve
+    print(f"[train] bg trained weights served (export_segmentation, folded): launches "
+          f"{json.dumps(k2)} for {batches} bg batches ({frames} frames, {ms:.1f} ms a "
+          f"frame); class maps against the unfolded eval graph: {differ} of {pixels} "
+          f"pixels differ, {near_tie} of them at top-2 logit gaps < 1e-3")
+    if k2["onehot_stem_conv"] != batches or sum(k2.values()) != batches:
+        raise SystemExit(f"serving the trained bg weights launched {k2}, not one "
+                         "onehot_stem_conv per batch")
+    if not differ < 1e-3 * pixels or differ > near_tie:
+        raise SystemExit("the served class maps differ from the unfolded graph's")
+    phase_s = time.perf_counter() - ts0
+    readings = {"step": step, "loader_ms": load, "fixture_s": fixture_s,
+                "cli_s": first_s, "resume_s": resume_s, "train_samples": samples,
+                "resume_loss_gap": gap, "resume_state_gap": param_gap,
+                "launches": launches, "gpu_cpu_losses": losses, "gpu_cpu_loss_rel": rel,
+                "gpu_cpu_stat_gap": stat_gap, "gpu_f64_grad_gap": card_gap,
+                "cpu_f64_grad_gap": cpu_gap, "grad_l2": l2, "grad_excess": excess,
+                "serve": {"launches": k2, "batches": batches, "frames": frames,
+                          "ms_per_frame": ms, "pixels_differ": differ,
+                          "near_tie": near_tie, "pixels": pixels},
+                "phase_s": phase_s}
+    print(f"[train] phase 16 took {phase_s:.1f} s")
     return readings
 
 
@@ -2091,6 +2414,7 @@ def main() -> int:
         score_readings = score_phase(dev, fixtures, card)
         staged_readings = staged_phase(dev, fixtures, card)
         train_readings = train_phase(dev, root, card)
+        train_readings["bg"] = bg_train_phase(dev, root, card)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)

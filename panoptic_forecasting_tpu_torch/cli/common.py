@@ -29,12 +29,16 @@ def seed_everything(seed: int) -> None:
 
 
 def config_device(cfg) -> torch.device:
-    """``platform: cpu`` -> the CPU; otherwise ``cuda`` (raises without it)."""
+    """``platform: cpu`` -> the CPU; otherwise ``cuda`` (raises without it),
+    with TF32 off: the reference computes in full f32, and cuDNN would
+    take TF32 for convolutions by default."""
     if cfg.get("platform") == "cpu":
         return resolve_device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; set platform to cpu "
                            "(--set platform cpu) to run on the CPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return resolve_device("cuda")
 
 

@@ -1,4 +1,4 @@
-"""Background (semantic forecast) dataset, test mode.
+"""Background (semantic forecast) dataset.
 
 Counterpart of ``panoptic_forecasting_tpu/data/bg_data.py`` (reference
 ``BGDataset``, datasets/bg_dataset.py:25-232). One sample = the 3
@@ -15,14 +15,25 @@ classes with ``only_background`` and 19 otherwise (bg_dataset.py:61-65).
 Depth ships raw by default and ``models/bg.py::_prep_inputs`` decodes it
 on the device (``d/256 - 1``, 0 invalid, clamped to [min_depth,
 max_depth]); ``host_depth_decode`` decodes it here instead and adds the
-mask. Depth statistics are set on the card only for the train split
-outside test mode, so a test-mode dataset leaves them unset (mean 0,
-std 1), as in the JAX package. ``resize_h``/``resize_w`` resize every
-array NEAREST (``data/transforms.py::Resize``).
+mask. ``resize_h``/``resize_w`` resize every array NEAREST
+(``data/transforms.py::Resize``).
 
-The training split outside test mode (its depth statistics, random
-scale crop and flip) is not ported yet and raises
-``NotImplementedError``.
+The train split outside test mode (JAX :108-155, 203-205):
+
+* depth statistics (mean, std) of the decoded, clamped, valid depths of
+  every 5th sample, set on the card (a test-mode dataset leaves them
+  unset: mean 0, std 1, as in the JAX package). They are read from
+  ``depth_norm_params_file`` when that file exists, else computed and
+  written with ``np.save``, which appends ``.npy`` to a name without it:
+  the configs' ``depth_norm_params.npz`` is written as
+  ``depth_norm_params.npz.npy``, never found again, and recomputed on
+  every run, as in the JAX package;
+* augmentation: ``RandomScaleCrop`` (``crop_size``, ``scale_min``,
+  ``scale_max``; off with ``no_resize_crop``) then
+  ``RandomHorizontalFlip``, after ``Resize`` when one is configured;
+  each sample draws from ``RandomState(hash((idx, epoch)) & 0x7FFFFFFF)``
+  with the epoch ``set_epoch`` gave (the loader forwards it), so the
+  draws do not depend on threads or processes.
 """
 
 from __future__ import annotations
@@ -36,14 +47,12 @@ import numpy as np
 
 from . import io
 from .cards import DataCard
-from .transforms import Resize
+from .transforms import RandomHorizontalFlip, RandomScaleCrop, Resize
 
 
 class BGDataset:
     def __init__(self, split: str, cfg: Dict[str, Any], card: DataCard,
                  test: bool = False):
-        if split == "train" and not test:
-            raise NotImplementedError("the bg training data is not ported yet")
         d = cfg.get("data", {})
         self.split = split
         self.test = test
@@ -69,8 +78,46 @@ class BGDataset:
         self.depth_h5 = (io.open_h5(d["depth_h5_path"] % split)
                          if self.use_depths else None)
         self.transforms = []
+        train = split == "train" and not test
+        if train and self.use_depths:
+            self._set_depth_stats(d.get("depth_norm_params_file"), card)
+        if train:
+            if not d.get("no_resize_crop"):
+                self.transforms.append(RandomScaleCrop(
+                    d.get("crop_size", 800), scale_min=d.get("scale_min", 0.5),
+                    scale_max=d.get("scale_max", 2.0), ignore_index=255))
+            self.transforms.append(RandomHorizontalFlip())
         if d.get("resize_h") is not None:
-            self.transforms.append(Resize((int(d["resize_w"]), int(d["resize_h"]))))
+            self.transforms.insert(0, Resize((int(d["resize_w"]), int(d["resize_h"]))))
+        self._epoch_seed = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch in each sample's augmentation seed."""
+        self._epoch_seed = int(epoch)
+
+    def _set_depth_stats(self, stats_file, card: DataCard) -> None:
+        """(mean, std) of the depths onto ``card`` (see the module doc)."""
+        if stats_file and os.path.exists(stats_file):
+            arr = np.load(stats_file)
+            mean, std = float(arr[0]), float(arr[1])
+        else:
+            vals = []
+            for i, (_, _, city, seq, frame, _, start_fr) in enumerate(self.samples):
+                if i % 5 != 0:
+                    continue
+                dep = self._load_depth_block(city, seq, frame, start_fr)
+                dep = dep[dep > 0]
+                if dep.size:
+                    vals.append(dep)
+            if vals:
+                allv = np.concatenate(vals)
+                mean, std = float(allv.mean()), float(allv.std())
+            else:
+                mean, std = 0.0, 1.0
+            if stats_file:
+                os.makedirs(os.path.dirname(stats_file) or ".", exist_ok=True)
+                np.save(stats_file, np.array([mean, std], np.float32))
+        card.set_stats("depth", np.array([mean]), np.array([std]))
 
     @functools.cached_property
     def samples(self) -> List[Tuple[str, List[str], str, str, int, int, int]]:
@@ -127,8 +174,9 @@ class BGDataset:
         if self.use_depths:
             load = self._load_depth_block if self.host_depth_decode else self._raw_depth_block
             arrs.append(load(city, seq, frame, start_fr))
+        rng = np.random.RandomState(hash((idx, self._epoch_seed)) & 0x7FFFFFFF)
         for tr in self.transforms:
-            segs, gt, arrs = tr(segs, gt, arrs)
+            segs, gt, arrs = tr(segs, gt, arrs, rng)
 
         out: Dict[str, Any] = {
             "inputs": {"seg": np.ascontiguousarray(np.stack(segs))},

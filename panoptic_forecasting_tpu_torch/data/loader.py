@@ -149,8 +149,11 @@ class Loader:
 
     def set_epoch(self, epoch: int) -> None:
         """The epoch added to each order's seed (reference
-        train.py:172-173, 300-305)."""
+        train.py:172-173, 300-305), forwarded to a dataset that has a
+        ``set_epoch`` (the bg augmentation reseeds with it)."""
         self._epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     @property
     def rng_state(self):

@@ -3,8 +3,8 @@
 Counterpart of ``panoptic_forecasting_tpu/data/pipelines.py`` (reference
 ``data/__init__.py:14-31``): each builder returns a ``TaskData`` bundle of
 split datasets and the DataCard handed to the model builder. Ported
-tasks: ``odom``, ``pc_transform``, ``bg`` (test mode, ``bg_data.py``)
-and ``fg`` (``dataset_type`` ``fg_instance``, the training tracks, or
+tasks: ``odom``, ``pc_transform``, ``bg`` (``bg_data.py``: the train
+split's depth statistics go on the card) and ``fg`` (``dataset_type`` ``fg_instance``, the training tracks, or
 ``fg_scene``).
 """
 

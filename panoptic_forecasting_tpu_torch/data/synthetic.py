@@ -11,6 +11,8 @@ low-rank ROI features), writing only what the port's readers open:
   ``{split}_3d_info.pkl``;
 * ``write_fg_fixture``: the scene tables, depth tables, ROI feature h5
   and ``{split}_3d_info.pkl`` of the fg-scene dataset;
+* ``write_bg_fixture``: the bg-training tree (reprojected segs, the
+  fg-removed GT, a depth h5), one or several gap groups;
 * ``write_odom_predictions``: a predicted-odometry h5 (speed, yaw rate
   per future step) keyed ``city/seq/frame/start``;
 * ``write_odom_fixture``: the odometry dataset's ``{split}_3d_info.pkl``
@@ -322,6 +324,73 @@ def write_fg_fixture(
                      scene_depth_rows)
         _store_table(store, os.path.join(root, f"{split}_3d_info.pkl"), d3_rows)
     return store
+
+
+def write_bg_fixture(
+    root: str,
+    splits=("train", "val"),
+    n_snippets: int = 2,
+    height: int = 64,
+    width: int = 128,
+    seed: int = 0,
+    gap_lens: Tuple[int, ...] = (9,),
+    store: Dict[str, Any] = None,
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A bg-training tree with the JAX package's fixture content: per
+    ``(data_dirs, gap_len)`` group three reprojected-seg dirs (trainId
+    content under the reference's labelIds names, things set to 255),
+    the fg-removed GT labelTrainIds (things 255) and a depth h5 per split
+    keyed ``city/seq/frame:06d/start_fr`` (raw uint16 ``(d + 1)·256``
+    blocks of the group's three input frames, ``19 - gap - 6 + (0, 3,
+    6)``; ``start_fr = int((9 - gap) / 3)``). Gap 9 writes JAX's dirs
+    ``pc_ind{0,1,2}``; any other gap ``pc_gap{g}_ind{0,1,2}``.
+    ``configs/bg/bg_train.yaml`` joins gaps (9, 3).
+
+    Returns (the config ``data`` fragment pointing at the tree, ``store``
+    with the depth arrays).
+    """
+    store = store if store is not None else new_store()
+    os.makedirs(root, exist_ok=True)
+    groups = []
+    for gap in gap_lens:
+        tag = "" if gap == 9 else f"_gap{gap}"
+        dirs = [os.path.join(root, f"pc{tag}_ind{i}") for i in range(3)]
+        frames = (np.array([0, 3, 6]) + 19 - gap - 6).tolist()
+        groups.append((dirs, frames, int((9 - gap) / 3)))
+    gt_dir = os.path.join(root, "gtFine_nofg")
+    for split in splits:
+        arrays = {}
+        for snip in range(n_snippets):
+            seq = f"{snip:06d}"
+            frame = 19
+            segs, depths = make_scene_sequence(
+                30, height, width, seed=seed + snip + splits.index(split) * 100)
+            name = f"{CITY}_{seq}_{frame:06d}"
+            gt = segs[19].copy()
+            gt[gt >= 11] = 255  # things removed (remove_fg_from_gt.py:15-33)
+            save_png(os.path.join(gt_dir, split, CITY,
+                                  f"{name}_gtFine_labelTrainIds.png"),
+                     gt.astype(np.uint8), **PNG_IDS)
+            for dirs, frames, start_fr in groups:
+                block = np.zeros((height, width, 3), np.uint16)
+                for i, fr in enumerate(frames):
+                    arr = segs[fr].copy()
+                    arr[arr >= 11] = 255  # reprojections are fg-free
+                    save_png(os.path.join(dirs[i], split, CITY,
+                                          f"{name}_gtFine_labelIds.png"),
+                             arr.astype(np.uint8), **PNG_IDS)
+                    block[:, :, i] = (np.clip(depths[fr] + 1.0, 0, 255)
+                                      * 256).astype(np.uint16)
+                arrays[f"{CITY}/{seq}/{frame:06d}/{start_fr}"] = block
+        _store_arrays(store, os.path.join(root, f"depths_{split}.h5"), arrays)
+    data = {
+        "data_dir": [d for dirs, _, _ in groups for d in dirs],
+        "gap_len": list(gap_lens),
+        "gt_dir": gt_dir,
+        "depth_h5_path": os.path.join(root, "depths_%s.h5"),
+        "cityscapes_dir": root,
+    }
+    return data, store
 
 
 def write_odom_predictions(path: str, rows: List[Dict], starts=(10, 16),

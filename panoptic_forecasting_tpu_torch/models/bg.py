@@ -1,30 +1,40 @@
 """Background semantic forecaster: FCHarDNet over one-hot reprojected segs.
 
 Counterpart of ``panoptic_forecasting_tpu/models/bg.py`` (reference
-``BGModel``, bg_model.py:15-102), inference only: ``num_inputs`` past
-segmentations one-hot encoded to ``num_classes`` channels each (t-major),
-plus the normalised, masked depth channels, through FCHarDNet-70.
+``BGModel``, bg_model.py:15-102): ``num_inputs`` past segmentations
+one-hot encoded to ``num_classes`` channels each (t-major), plus the
+normalised, masked depth channels, through FCHarDNet-70.
 
-Two routes, as in the JAX package: the unfolded model runs the eval-mode
-BN graph on the assembled input; the folded model (``maybe_fold``, the
-serving default) computes the assembly and the first conv in one fused
-step, ``kernels/stem.py::onehot_stem_conv`` (K2 on the GPU), and runs the
-rest of the network from its output. ``predict`` gives the class map the
-bg export writes.
+Two routes, as in the JAX package: the unfolded model runs the BN graph
+on the assembled input (batch statistics in train mode, running ones in
+eval mode); the folded model (``maybe_fold``, the serving default) in
+eval mode computes the assembly and the first conv in one fused step,
+``kernels/stem.py::onehot_stem_conv`` (K2 on the GPU), and runs the rest
+of the network from its output (JAX ``_stem_kernel_on``: never while
+training). ``predict`` gives the class map the bg export writes;
+``loss`` the training objective (JAX :278-309).
 
-The JAX config keys ``packed_stem``/``packed_levels``/``stem_kernel``
-select TPU layouts of the same graph and are accepted and ignored. Every
-shipped config one-hot encodes its inputs; ``convert2onehot: false`` is
-not ported.
+Training starts from the seeded init and, when ``model.hardnet.
+pretrain_path`` names a file that exists, the reference's FCHarDNet-70
+Cityscapes pickle (``load_pretrained``; JAX ``_load_pretrained``); a
+missing file is warned about and the seeded weights are kept.
+
+The JAX config keys ``packed_train``/``packed_stem``/``packed_levels``/
+``stem_kernel``/``compute_dtype`` select TPU layouts of the same graph
+or a bf16 opt-in and are accepted and ignored. Every shipped config
+one-hot encodes its inputs; ``convert2onehot: false`` is not ported.
 """
 
 from __future__ import annotations
 
 import copy
+import os
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.stem import assemble_onehot, onehot_stem_conv
@@ -51,6 +61,11 @@ class BGModel(nn.Module):
         fw, fh = m.get("final_w"), m.get("final_h")
         self.final_size = (int(fh), int(fw)) if fw and fh else None
         self.fold_bn = bool(m.get("fold_bn", True))
+        self.pretrain_path = (m.get("hardnet", {}) or {}).get("pretrain_path")
+        if self.pretrain_path and not os.path.exists(self.pretrain_path):
+            warnings.warn(f"hardnet pretrain {self.pretrain_path} not found; "
+                          "seeded init")
+            self.pretrain_path = None
         in_ch = self.num_inputs * (self.num_classes + int(self.use_depth_inps))
         mean, std = depth_stats if depth_stats is not None else (0.0, 1.0)
         self.register_buffer("depth_mean", torch.tensor([float(mean)]))
@@ -109,15 +124,42 @@ class BGModel(nn.Module):
         dep = self._depth_channels(depth, dmask) if self.use_depth_inps else None
         return seg, dep
 
-    @torch.no_grad()
+    def load_pretrained(self) -> None:
+        """The FCHarDNet-70 pickle ``pretrain_path`` names, when it exists:
+        the stem conv mean-replicated across this model's input channels
+        (``expand_first_layer``), the class head kept fresh unless the
+        file's has this model's class count (``expand_last_layer``),
+        every other entry loaded (JAX ``_load_pretrained``)."""
+        if not self.pretrain_path:
+            return
+        from .torch_import import load_hardnet_pickle
+
+        own = self.model.state_dict()
+        state = {}
+        for name, v in load_hardnet_pickle(self.pretrain_path).items():
+            if name not in own:
+                continue
+            if name == "base.0.conv.weight" and v.shape[1] != own[name].shape[1]:
+                v = v.mean(1, keepdim=True).expand(own[name].shape)
+            if name.startswith("finalConv.") and v.shape[0] != own[name].shape[0]:
+                continue
+            state[name] = v
+        self.model.load_state_dict(state, strict=False)
+
     def forward(self, inputs: Dict[str, Any], return_argmax: bool = False):
         """inputs: seg (B, T, H, W) int, depth/depth_mask (B, T, H, W).
         Returns logits (B, C, H', W') at ``final_size`` (or the input size),
-        or with ``return_argmax`` the (B, H', W') int32 class map."""
+        or with ``return_argmax`` the (B, H', W') int32 class map. In
+        train mode the graph keeps its gradients and moves the BN
+        statistics; in eval mode it runs without autograd."""
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+            return self._forward(inputs, return_argmax)
+
+    def _forward(self, inputs, return_argmax):
         seg, depth, dmask = self._prep_inputs(inputs)
         kw = dict(final_size=self.final_size, return_argmax=return_argmax)
         h, w = seg.shape[-2:]
-        if (self.folded and h % 2 == 0 and w % 2 == 0
+        if (self.folded and not self.training and h % 2 == 0 and w % 2 == 0
                 and (depth is not None) == self.use_depth_inps):
             # assembly + base.0 in one fused step
             dep = self._depth_channels(depth, dmask) if self.use_depth_inps else None
@@ -133,3 +175,19 @@ class BGModel(nn.Module):
         """{"seg": (B, H', W') class map}: the argmax at ``final_size``
         (or the input size) of ``batch["inputs"]`` (JAX ``predict``)."""
         return {"seg": self(batch["inputs"], return_argmax=True)}
+
+    def loss(self, batch: Dict[str, Any]):
+        """-> (mean CE, {"loss", "accuracy"}): the cross entropy of the
+        logits against ``labels.seg`` over the pixels not 255, and the
+        pixel accuracy there, each divided by max(valid pixels, 1), so an
+        all-ignored batch gives 0 (JAX ``loss``)."""
+        logits = self(batch["inputs"])
+        labels = torch.as_tensor(batch["labels"]["seg"],
+                                 device=logits.device).long()
+        valid = labels != 255
+        total = valid.sum().clamp(min=1)
+        ce = F.cross_entropy(logits, labels, ignore_index=255, reduction="none")
+        loss = ce.sum() / total
+        hits = valid & (logits.detach().argmax(1) == labels)
+        acc = hits.sum() / total
+        return loss, {"loss": loss, "accuracy": acc}

@@ -50,9 +50,10 @@ def _convlayer(p: Tree, s: Optional[Tree], prefix: str, out):
     if "norm" in p:
         out[f"{prefix}.norm.weight"] = _t(p["norm"]["scale"])
         out[f"{prefix}.norm.bias"] = _t(p["norm"]["bias"])
-        out[f"{prefix}.norm.running_mean"] = _t(s["norm"]["mean"])
-        out[f"{prefix}.norm.running_var"] = _t(s["norm"]["var"])
-        out[f"{prefix}.norm.num_batches_tracked"] = torch.tensor(0)
+        if s is not None:
+            out[f"{prefix}.norm.running_mean"] = _t(s["norm"]["mean"])
+            out[f"{prefix}.norm.running_var"] = _t(s["norm"]["var"])
+            out[f"{prefix}.norm.num_batches_tracked"] = torch.tensor(0)
 
 
 def _hardnet_stage(p: Tree, s: Optional[Tree], prefix: str, out):
@@ -70,8 +71,12 @@ def bg_state_dict_from_jax(variables: Tree,
                            ) -> Dict[str, torch.Tensor]:
     """BGModel variables -> ``BGModel`` state_dict (``model.*`` +
     ``depth_mean``/``depth_std``). Takes unfolded ``{params,
-    batch_stats}`` (load into an unfolded BGModel) or folded ``{params}``
-    (load into ``BGModel.maybe_fold()``'s result)."""
+    batch_stats}``, as training holds them (load into an unfolded
+    BGModel: the BN ``running_mean``/``running_var`` from the batch
+    statistics, ``num_batches_tracked`` 0), or folded ``{params}`` (load
+    into ``BGModel.maybe_fold()``'s result). Unfolded ``{params}`` alone,
+    a tree shaped as the parameters (gradients, SGD's momentum), gives
+    the parameters' entries only."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
@@ -209,7 +214,8 @@ def opt_state_from_jax(opt_state: Any,
     Adam's ``mu``/``nu``/``count`` become ``exp_avg``/``exp_avg_sq``/
     ``step`` and SGD's momentum ``trace`` the ``momentum_buffer``; each
     tree goes through ``to_state_dict`` (``odom_state_dict_from_jax`` or
-    ``fg_state_dict_from_jax``, permutations of the entries), so the GRU's
+    ``fg_state_dict_from_jax``, permutations of the entries; for bg
+    ``lambda t: bg_state_dict_from_jax({"params": t})``), so the GRU's
     hidden-side r/z entries, which JAX does not have, are 0.
     ``param_groups`` is the optimizer's own (``state_dict()["param_groups"]``).
     """

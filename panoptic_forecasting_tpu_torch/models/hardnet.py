@@ -15,7 +15,8 @@ The JAX package's TPU layout variants (``packed_*``, ``stem_s2d``) are
 exact re-indexings of this graph and are not ported.
 
 ``folded=True`` is the inference graph: every ConvLayer is a conv with
-bias and no BatchNorm (``fold_batchnorm_``).
+bias and no BatchNorm (``fold_batchnorm_``). The unfolded graph trains:
+its BatchNorm (``BatchNorm2d``) keeps flax's statistics.
 """
 
 from __future__ import annotations
@@ -86,10 +87,46 @@ def resize_bilinear_hw(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     h_in, w_in = x.shape[-2:]
     h_out, w_out = size
     if h_out != h_in:
-        x = torch.matmul(_interp_matrix(h_in, h_out, x.device), x)
+        x = torch.matmul(_interp_matrix(h_in, h_out, x.device).to(x.dtype), x)
     if w_out != w_in:
-        x = torch.matmul(x, _interp_matrix(w_in, w_out, x.device).t())
+        x = torch.matmul(x, _interp_matrix(w_in, w_out, x.device).to(x.dtype).t())
     return x
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's semantics (JAX ``ConvLayer``'s
+    ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``), under
+    ``nn.BatchNorm2d``'s state names.
+
+    In training the batch is normalised as flax does it: the statistics
+    are the batch mean and flax's variance ``max(0, E[x²] − E[x]²)``
+    (biased, and one pass: where the mean is large against the spread
+    this rounds otherwise than a two-pass variance, and through 70
+    layers the logits move far beyond f32 rounding), and ``y = (x − mean) ·
+    (γ · rsqrt(var + ε)) + β``. The running statistics move as ``0.9 · r
+    + 0.1 · s`` with those statistics (``nn.BatchNorm2d`` moves them
+    with the unbiased variance, and raises on one value per channel,
+    where this variance is 0). In eval mode the running statistics
+    normalise.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        dims = (0, 2, 3)
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+            self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class ConvLayer(nn.Module):
@@ -101,7 +138,7 @@ class ConvLayer(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, kernel // 2,
                               bias=folded)
-        self.norm = None if folded else nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.norm = None if folded else BatchNorm2d(out_ch)
 
     def forward(self, x):
         x = self.conv(x)
