@@ -11,7 +11,8 @@ prepare_gt_nofg -> prepare_bg_data -> export_segmentation ->
 export_panoptic / export_instances -> evaluate_panoptic /
 evaluate_instances -> viz_panoptic (phase 14), training of the odometry
 and fg models (``cli.train``, phase 15) and of the bg model, whose
-trained weights then serve through K2 (phase 16), and the single-call panoptic
+trained weights then serve through K2 (phase 16), the same training
+data-parallel (``cli.train --distributed``, phase 17), and the single-call panoptic
 forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
@@ -168,12 +169,46 @@ Phases (any failure exits non-zero):
      served by ``export_segmentation`` (folded: one onehot_stem_conv per
      bg batch and no other kernel), its class maps equal to the same
      weights' unfolded eval graph but at top-2 logit gaps < 1e-3 (fewer
-     than 1e-3 of pixels).
+     than 1e-3 of pixels);
+ 17. data parallelism (``cli.train --distributed``; the launch counts set
+     to 0 just before each run and read just after: 0 of every kernel),
+     each rank a process of this script (``--dp-rank``) with a timeout,
+     cuDNN deterministic: (a) NCCL at world size 1 through torchrun's
+     environment on bg_train.yaml as phase 16 ran it (2 epochs of 3
+     steps): the backend NCCL, the epoch losses and ``best_model``
+     bit-equal to phase 16's; (b) two gloo ranks on the one card (NCCL
+     refuses two ranks on one device) for odom_train.yaml (batch 32, 16
+     a rank, 2 x 50 steps on phase 15's table), fg_train.yaml (2 x 10 on
+     phase 15's fixture) and bg_train.yaml (8, 4 a rank; 2 x 3 on phase
+     16's), each against its one-process run of phases 15-16: both ranks
+     equal, losses finite; odom's every epoch's train and val loss within
+     1e-4 relative and every parameter within 1e-4 of its tensor's
+     largest entry; fg's and bg's f32 runs drift apart beyond that while
+     their steps agree (PERF.md §6), so they are held to a
+     float64 step as phase 16 holds the card to the CPU: the first step
+     in float64 on two ranks within 1e-6 of the one-process step (each
+     gradient, bg's BN statistics, over the tensor's largest entry), and
+     the two-rank f32 step no farther from it than twice the one-process
+     f32 step + 1e-3 (relative L2 of the gradients) or + 1e-5 (BN
+     statistics); fg's epoch losses within 1e-4 still; every first step
+     in f32 printed against the one-process one (gradients, and the
+     parameters against the step's rounding bound); bg resumed for a
+     third epoch against a straight two-rank run (within 1e-3), rank 1
+     writing nothing under the working dirs (an audit hook) and rank 0
+     writing every file; (c) rank 0's bg ``best_model`` served by
+     ``export_segmentation`` (K2 once per bg batch, no other kernel), its
+     class maps equal to its own unfolded eval graph's but at top-2 logit
+     gaps < 1e-3 (fewer than 1e-3 of pixels), and the pixels apart from
+     the one-process checkpoint's export printed; (d) a two-rank bg step
+     on rank 0: its ms, and every
+     all-reduce of a step counted, sized and timed (BN forward and
+     backward, the valid count, the gradient), with the card's name and
+     power limit (both ranks share the card: no scaling figure).
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (both K1 entry points, K2, K3 and each K4 probe) and the CLI's,
 the scoring's, the staged chain's and the training's readings (bg's
-under ``train.bg``), and last
+under ``train.bg``, data parallelism's under ``train.dp``), and last
 a JSON line
 {"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
@@ -236,6 +271,7 @@ from panoptic_forecasting_tpu_torch.models.base import init_weights
 from panoptic_forecasting_tpu_torch.models.pc_transform import (
     PCTransformModel, _camera_maps, pc_transform_predict, reproject,
 )
+from panoptic_forecasting_tpu_torch.parallel import mesh
 from panoptic_forecasting_tpu_torch.scripts import prof_minwin, prof_strided_load
 from panoptic_forecasting_tpu_torch.train.loop import to_device
 from panoptic_forecasting_tpu_torch.train.optim import build_optimizer
@@ -1838,10 +1874,24 @@ def one_step_gpu_cpu(root, dev):
     return {"cuda": lg, "cpu": lc}, rel, grad_rel, excess
 
 
-def train_phase(dev, root, card):
+def cpu_state(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def adam_moments(model, wd):
+    """{parameter name: (m, √v)} of the Adam state in ``wd``'s trainer
+    state."""
+    state = ckpt.load_trainer_state(wd)["opt_state"]["state"]
+    return {n: (state[i]["exp_avg"], state[i]["exp_avg_sq"].sqrt())
+            for i, (n, _) in enumerate(model.named_parameters())
+            if i in state and "exp_avg_sq" in state[i]}
+
+
+def train_phase(dev, root, card, refs):
     """Phase 15: cli.train on the card with both training configs at full
     width; the fg run resumed; fixed-batch step timings; one narrow fg
-    step on the card against the CPU."""
+    step on the card against the CPU. Puts its fixtures and one-process
+    runs in ``refs`` (phase 17 holds the data-parallel runs to them)."""
     ts0 = time.perf_counter()
     odom_dir = os.path.join(root, "odom_train")
     odom_store = synthetic.write_odom_fixture(odom_dir, n_snippets=TIMED_SNIPPETS)
@@ -1864,6 +1914,11 @@ def train_phase(dev, root, card):
     # deterministic ones; the resumed epoch must agree within 1e-3
     with cudnn_deterministic():
         fg, fg_launches, fg_s = train_cli_run(fg_argv, fg_store)
+        refs.update(odom_dir=odom_dir, odom_store=odom_store, fg_dir=fg_dir,
+                    fg_store=fg_store, odom=(odom["history"], cpu_state(odom["model"])),
+                    fg=(fg["history"], cpu_state(fg["model"])),
+                    adam={"odom": adam_moments(odom["model"], odom_argv[1]),
+                          "fg": adam_moments(fg["model"], wd)})
         saved = ckpt.load_trainer_state(wd)
         resumed, resume_launches, resume_s = train_cli_run(
             fg_argv + ["--continue_training", "--set", "training.num_epochs", "3"],
@@ -2032,13 +2087,15 @@ def bg_narrow_step(argv, store, dev):
             {"cuda_f64": l2(gg, g64), "cpu_f64": l2(gc, g64), "cuda_cpu": l2(gg, gc)})
 
 
-def serve_trained(wd, data, store, dev):
+def serve_trained(wd, data, store, dev, other=None):
     """The trained ``wd/best_model`` through the bg canvas export
     (``export_segmentation`` with configs/bg/bg_val_short.yaml on the
     fixture's gap-3 group, folded: K2), counted; its class maps against
-    the same weights' unfolded eval-mode graph on the same inputs.
-    -> (launches, batches, frames, ms per frame, pixels that differ,
-    of them where the unfolded top-2 logits are within 1e-3)."""
+    the same weights' unfolded eval-mode graph on the same inputs, and
+    ``other`` ({frame: class map} of another export, if given) against
+    this export. -> (launches, batches, frames, ms per frame, pixels that
+    differ, of them where the unfolded top-2 logits are within 1e-3,
+    pixels, and the same two counts for ``other``)."""
     bg = conf("bg", "bg_val_short.yaml")
     short = [d for d in data["data_dir"] if "_gap3_" in d]
     bg["data"].update(data_dir=short, gap_len=[3], gt_dir=data["gt_dir"],
@@ -2053,7 +2110,7 @@ def serve_trained(wd, data, store, dev):
         model = restore_params(cfg, model).eval()
         loader = task_data.loader("val", cfg, test=True)
         maps = canvases(os.path.join(wd, "bg_trained"))
-        differ = near_tie = frames = batches = 0
+        differ = near_tie = frames = batches = other_differ = other_tie = 0
         for batch in loader:
             batches += 1
             logits = model(batch["inputs"])
@@ -2068,14 +2125,21 @@ def serve_trained(wd, data, store, dev):
                 mis = got != ref[i]
                 differ += int(mis.sum())
                 near_tie += int((mis & tie[i]).sum())
+                if other is not None:
+                    mis = got != other[f"{meta['city'][i]}_{meta['seq'][i]}_"
+                                       f"{int(meta['target_frame'][i]):06d}"]
+                    other_differ += int(mis.sum())
+                    other_tie += int((mis & tie[i]).sum())
     return (launches, batches, frames, 1e3 * secs / max(frames, 1), differ, near_tie,
-            frames * ref.shape[-2] * ref.shape[-1])
+            frames * ref.shape[-2] * ref.shape[-1], other_differ, other_tie)
 
 
-def bg_train_phase(dev, root, card):
+def bg_train_phase(dev, root, card, refs):
     """Phase 16: cli.train on configs/bg/bg_train.yaml at full width on the
     card, resumed; fixed-batch steps; the loader apart; one narrow step on
-    the card against the CPU; the trained weights served through K2."""
+    the card against the CPU; the trained weights served through K2. Puts
+    its fixture, its first run (history and ``best_model``) and working
+    dir in ``refs``."""
     ts0 = time.perf_counter()
     bg_dir = os.path.join(root, "bg_train")
     data, store = synthetic.write_bg_fixture(bg_dir, n_snippets=BG_SNIPPETS, height=H,
@@ -2087,6 +2151,9 @@ def bg_train_phase(dev, root, card):
     with cudnn_deterministic():
         first, first_launches, first_s = train_cli_run(
             bg_train_argv(wd, data, steps, ("training.num_epochs", 2)), store)
+        refs.update(bg_data=data, bg_store=store, bg_wd=wd, bg=(
+            first["history"], cpu_state(first["model"]),
+            torch.load(os.path.join(wd, ckpt.BEST), map_location="cpu", weights_only=True)))
         saved = ckpt.load_trainer_state(wd)
         resumed, resume_launches, resume_s = train_cli_run(bg_train_argv(
             wd, data, steps, ("training.num_epochs", 3)) + ["--continue_training"], store)
@@ -2173,7 +2240,7 @@ def bg_train_phase(dev, root, card):
         raise SystemExit("the bg step on the card and on the CPU disagree")
 
     serve = serve_trained(wd, data, store, dev)
-    k2, batches, frames, ms, differ, near_tie, pixels = serve
+    k2, batches, frames, ms, differ, near_tie, pixels, _, _ = serve
     print(f"[train] bg trained weights served (export_segmentation, folded): launches "
           f"{json.dumps(k2)} for {batches} bg batches ({frames} frames, {ms:.1f} ms a "
           f"frame); class maps against the unfolded eval graph: {differ} of {pixels} "
@@ -2195,6 +2262,475 @@ def bg_train_phase(dev, root, card):
                           "near_tie": near_tie, "pixels": pixels},
                 "phase_s": phase_s}
     print(f"[train] phase 16 took {phase_s:.1f} s")
+    return readings
+
+
+# ---- 17. data parallelism ---------------------------------------------------------
+
+DP_PLAIN_STEPS, DP_TIMED_STEPS = 6, 6  # measured bg steps on two ranks, each way
+# Configs whose two-rank f32 runs drift from the one-process ones beyond
+# 1e-4 while their steps agree (PERF.md, §6): held to a float64 step.
+FLOAT64_HELD = ("fg", "bg")
+DP_FILES = (ckpt.BEST, ckpt.LATEST, ckpt.TRAINER, "config.yaml", "data_card.json",
+            os.path.join("logs", "metrics.jsonl"))
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def dp_bg_steps(argv, store):
+    """Steps of the bg model (seeded) on this rank's rows of one fixed
+    batch, as the trainer takes them (BN and the valid count global, the
+    gradient all-reduced): rank's ms per step by the host clock between
+    barriers (``DP_PLAIN_STEPS`` after 2 of warm-up); then as many with
+    every all-reduce counted and timed (synchronised before and after),
+    classified by its place in the step."""
+    import torch.distributed as dist
+
+    with store_readers(store):
+        cfg, data, model = setup(load_config(argv + ["--distributed"]))
+        batch = next(iter(data.loader("train", cfg, seed=SEED, shard=True)))
+    sharded = batch.pop("sharded", False)
+    batch = to_device(batch, next(model.parameters()).device)
+    init_weights(model, SEED)
+    model.train()
+    opt = build_optimizer(model, cfg)
+    n_params = sum(p.numel() for p in opt.params)
+
+    def step():
+        with mesh.sharded_batch(sharded):
+            loss, _ = model.loss(batch)
+        loss.backward()
+        mesh.all_reduce_grads(opt.params, average=not model.loss_adds_over_shards)
+        opt.step()
+        opt.zero_grad()
+
+    def timed_step():
+        mesh.barrier()
+        sync()
+        ts = time.perf_counter()
+        step()
+        sync()
+        return 1e3 * (time.perf_counter() - ts)
+
+    plain = [timed_step() for _ in range(2 + DP_PLAIN_STEPS)][2:]
+    calls, orig = [], dist.all_reduce
+
+    def counted_all_reduce(t, *args, **kwargs):
+        sync()
+        ts = time.perf_counter()
+        out = orig(t, *args, **kwargs)
+        sync()
+        calls.append((t.numel(), t.numel() * t.element_size(),
+                      1e3 * (time.perf_counter() - ts)))
+        return out
+
+    per_step = []
+    dist.all_reduce = counted_all_reduce
+    try:
+        for _ in range(DP_TIMED_STEPS):
+            calls.clear()
+            ms = timed_step()
+            first = next(i for i, c in enumerate(calls) if c[0] == 1)  # the valid count
+            kinds = {"bn_forward": calls[:first], "valid_count": calls[first: first + 1],
+                     "bn_backward": [c for c in calls[first + 1:] if c[0] != n_params],
+                     "gradient": [c for c in calls[first + 1:] if c[0] == n_params]}
+            per_step.append((ms, {k: (len(v), sum(c[1] for c in v), sum(c[2] for c in v))
+                                  for k, v in kinds.items()}))
+    finally:
+        dist.all_reduce = orig
+    plain.sort()
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    kinds = per_step[0][1]
+    return {"rows": int(batch["labels"]["seg"].shape[0]), "sharded": sharded,
+            "step_ms_median": med(plain), "step_ms_min": plain[0], "step_ms_max": plain[-1],
+            "counted_step_ms_median": med([ms for ms, _ in per_step]),
+            "collectives": {k: {"calls": kinds[k][0], "bytes": kinds[k][1],
+                                "ms_median": med([s[k][2] for _, s in per_step])}
+                            for k in kinds},
+            "calls_same_every_step": all(
+                {k: v[:2] for k, v in s.items()} == {k: v[:2] for k, v in kinds.items()}
+                for _, s in per_step),
+            "collective_ms_median": med([sum(v[2] for v in s.values()) for _, s in per_step]),
+            "gradient_floats": n_params}
+
+
+def first_step(argv, store, shard=False, dtype=torch.float32):
+    """One training step of the config's model (seeded, then cast to
+    ``dtype``) on the first training batch, this rank's rows of it with
+    ``shard``, as the trainer takes it. -> ({name: gradient after the
+    all-reduce}, {name: parameter or BN statistic after the step}, the
+    learning rate), on the CPU."""
+    with store_readers(store):
+        cfg, data, model = setup(load_config(argv + (["--distributed"] if shard else [])))
+        batch = next(iter(data.loader("train", cfg, seed=SEED, shard=shard)))
+    sharded = batch.pop("sharded", False)
+    init_weights(model, SEED)
+    model.to(dtype).train()
+    opt = build_optimizer(model, cfg)
+    with mesh.sharded_batch(sharded):
+        loss, _ = model.loss(to_device(batch, next(model.parameters()).device))
+    loss.backward()
+    mesh.all_reduce_grads(opt.params, average=not model.loss_adds_over_shards)
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().clone()
+             for n, p in model.named_parameters()}
+    opt.step()
+    return grads, cpu_state(model), float(cfg["training"]["lr"])
+
+
+def dp_worker(spec_path: str, rank: int) -> int:
+    """One rank of phase 17 (``chip_smoke.py --dp-rank SPEC RANK``). It
+    joins gloo at the spec's address, or leaves NCCL to cli.train through
+    torchrun's environment; runs each job's ``cli.train.main`` with
+    ``--distributed`` and the launch counts set to 0 just before and read
+    just after (rank 1 records what it writes under the jobs' working
+    dirs); then each of the spec's first steps (``first_step``) and, if
+    asked, the measured bg steps; and saves its results to
+    ``SPEC.rank{rank}``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    spec = torch.load(spec_path, weights_only=False)
+    with open(spec["stores"], "rb") as f:
+        stores = pickle.load(f)
+    if spec.get("addr"):
+        dist.init_process_group("gloo", init_method=f"tcp://{spec['addr']}",
+                                world_size=spec["world"], rank=rank,
+                                timeout=datetime.timedelta(seconds=spec["timeout"]))
+    torch.backends.cudnn.deterministic = True  # the runs are compared
+    wds = [os.path.abspath(job["wd"]) for job in spec["jobs"]]
+    writes = []
+
+    def audit(event, args):
+        if event == "open" and args[1] is not None and any(c in str(args[1]) for c in "wax+"):
+            path = args[0]
+        elif event in ("os.mkdir", "os.rename", "os.remove", "shutil.rmtree"):
+            path = args[0]
+        else:
+            return
+        if isinstance(path, (str, bytes, os.PathLike)):
+            path = os.path.abspath(os.fsdecode(path))
+            if any(path == wd or path.startswith(wd + os.sep) for wd in wds):
+                writes.append((event, path))
+
+    if rank:
+        sys.addaudithook(audit)
+    out = {}
+    for job in spec["jobs"]:
+        n_writes = len(writes)
+        reset_counts()
+        ts = time.perf_counter()
+        with store_readers(stores[job["store"]]):
+            result = train_cli.main(job["argv"] + ["--distributed"])
+        sync()
+        out[job["name"]] = {
+            "secs": time.perf_counter() - ts, "launches": read_counts(),
+            "history": result["history"], "step": result["step"],
+            "state": cpu_state(result["model"]), "writes": writes[n_writes:],
+            "backend": dist.get_backend(), "world": dist.get_world_size()}
+        mesh.barrier()
+    for name, argv in spec.get("first_steps", {}).items():
+        for dtype in (torch.float32,) + ((torch.float64,) if name in FLOAT64_HELD else ()):
+            out[f"first_step_{name}_{dtype}"] = first_step(argv, stores[name], True, dtype)
+    if spec.get("measure"):
+        out["measure"] = dp_bg_steps(spec["measure"], stores["bg"])
+    torch.save(out, f"{spec_path}.rank{rank}")
+    mesh.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_launch(spec, root, tag, world, env, timeout):
+    """Start ``world`` ranks of ``dp_worker`` on ``spec`` (each a process
+    of this script, its output in ``root/dp_{tag}.rank{r}.log``); kill
+    them all when one fails or the timeout passes. -> each rank's
+    results."""
+    path = os.path.join(root, f"dp_{tag}.spec")
+    torch.save(dict(spec, world=world, timeout=timeout), path)
+    logs = [open(os.path.join(root, f"dp_{tag}.rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", path,
+                               str(r)], cwd=REPO, env=dict(os.environ, **env), stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(world)]
+    ts, failed = time.perf_counter(), None
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                failed = "a rank failed"
+                break
+            if time.perf_counter() - ts > timeout:
+                failed = f"the ranks took longer than {timeout} s"
+                break
+            time.sleep(0.2)
+        if failed is None and any(p.returncode for p in procs):
+            failed = "a rank failed"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    if failed:
+        for r in range(world):
+            with open(os.path.join(root, f"dp_{tag}.rank{r}.log")) as f:
+                print(f"[dp] rank {r} of {tag} (exit {procs[r].returncode}):\n"
+                      + f.read()[-3000:])
+        raise SystemExit(f"phase 17 ({tag}): {failed}")
+    return [torch.load(f"{path}.rank{r}", weights_only=False) for r in range(world)]
+
+
+def loss_gaps(got, want):
+    """Largest relative gap of any epoch's train or val loss."""
+    if [h["epoch"] for h in got] != [h["epoch"] for h in want]:
+        raise SystemExit(f"epochs differ: {[h['epoch'] for h in got]}")
+    return max(abs(a[s]["loss"] - b[s]["loss"]) / abs(b[s]["loss"])
+               for a, b in zip(got, want) for s in ("train", "val"))
+
+
+def state_gap(got, want, moments=None, keys=None):
+    """The float tensor (parameter, BN statistic; of ``keys`` if given)
+    farthest from ``want``: (its largest |Δ| over its largest |entry|,
+    its name, its entries over 1e-4 of that, and, given ``moments``
+    ({name: the one-process run's Adam (m, √v)}), at those entries the
+    largest √v over the tensor's largest and the largest |m|/√v over the
+    tensor's median |m|/√v). Integer buffers must be equal."""
+    worst = (0.0, None, 0, None)
+    for k, v in want.items():
+        if keys is not None and k not in keys:
+            continue
+        if not v.is_floating_point():
+            if not torch.equal(got[k], v):
+                raise SystemExit(f"{k} differs")
+            continue
+        d = (got[k].double() - v.double()).abs()
+        top = v.double().abs().max().clamp(min=1e-30)
+        gap = float(d.max() / top)
+        if gap > worst[0]:
+            over = d > 1e-4 * top
+            adam = None
+            if moments is not None and k in moments and over.any():
+                m, sv = moments[k]
+                ratio = m.abs() / sv.clamp(min=1e-30)
+                adam = {"sqrt_v": float(sv[over].max() / sv.max().clamp(min=1e-30)),
+                        "m_over_sqrt_v": float(ratio[over].max()
+                                               / ratio.median().clamp(min=1e-30))}
+            worst = (gap, k, int(over.sum()), adam)
+    return worst
+
+
+def rel_l2(a, b):
+    """‖a − b‖ / ‖b‖ over every tensor of ``b``."""
+    return (sum(float((a[n].double() - b[n].double()).square().sum()) for n in b)
+            / sum(float(b[n].double().square().sum()) for n in b)) ** 0.5
+
+
+def step_gaps(got, want, lr, adam):
+    """One first step on two ranks against one process: the largest
+    gradient gap over its tensor's largest entry, and the largest excess
+    of a parameter's gap over the step's rounding bound (Adam's first
+    step lr·g/(|g| + eps) moves at most lr·|Δg|/eps; SGD's lr·|Δg|),
+    + 4 ulp of max(|p|, lr)."""
+    (ga, pa, _), (gb, pb, _) = got, want
+    grad = max(float((ga[n] - gb[n]).abs().max() / gb[n].abs().max().clamp(min=1e-30))
+               for n in gb)
+    excess = -float("inf")
+    for n in gb:
+        slope = lr / 1e-8 if adam else lr
+        ulp = 4 * torch.maximum(pb[n].abs(), torch.tensor(lr)) * 2.0 ** -23
+        bound = slope * (ga[n] - gb[n]).abs() + ulp
+        excess = max(excess, float(((pa[n] - pb[n]).abs() - bound).max()))
+    return grad, excess
+
+
+def dp_phase(dev, root, card, refs):
+    """Phase 17: cli.train --distributed. (a) NCCL at world size 1 on
+    bg_train.yaml against phase 16's run; (b) two gloo ranks on the one
+    card for each shipped training config against the one-process runs
+    of phases 15 and 16, bg resumed; (c) rank 0's bg best_model served
+    through K2; (d) the collectives and ms of a two-rank bg step."""
+    import pickle
+
+    ts0 = time.perf_counter()
+    stores = os.path.join(root, "dp_stores.pkl")
+    with open(stores, "wb") as f:
+        pickle.dump({"odom": refs["odom_store"], "fg": refs["fg_store"],
+                     "bg": refs["bg_store"]}, f)
+    data, steps = refs["bg_data"], ("training.steps_per_epoch", BG_STEPS)
+
+    def wd(name):
+        return os.path.join(root, f"dp_{name}")
+
+    def bg_job(name, epochs, *extra):
+        return {"name": name, "wd": wd(name), "store": "bg", "argv": bg_train_argv(
+            wd(name), data, steps, ("training.num_epochs", epochs)) + list(extra)}
+
+    # (a) NCCL, world size 1, torchrun's environment
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port()),
+           "NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME", "lo")}
+    (nccl,) = dp_launch({"stores": stores, "jobs": [bg_job("nccl", 2)]}, root, "nccl", 1,
+                        env, 240)
+    nccl = nccl["nccl"]
+    history, _, best = refs["bg"]
+    got_best = torch.load(os.path.join(wd("nccl"), ckpt.BEST), map_location="cpu",
+                          weights_only=True)
+    nccl_equal = (nccl["history"] == history and sorted(got_best) == sorted(best)
+                  and all(torch.equal(got_best[k], best[k]) for k in best))
+    print(f"[dp] (a) cli.train --distributed, backend {nccl['backend']}, world "
+          f"{nccl['world']}: bg 2 epochs of {BG_STEPS} steps in {nccl['secs']:.1f} s, losses "
+          f"and best_model bit-equal to phase 16's run: {nccl_equal}; launches "
+          f"{json.dumps(nccl['launches'])}")
+    failures = []  # every reading is printed before the phase fails
+    if nccl["backend"] != "nccl" or nccl["world"] != 1 or not nccl_equal:
+        failures.append("the NCCL run at world size 1 is not phase 16's run")
+    if any(nccl["launches"].values()):
+        failures.append(f"bg training under NCCL launched a kernel: {nccl['launches']}")
+
+    # (b) two gloo ranks on the one card
+    odom_steps = (("training.steps_per_epoch", 50), ("training.num_epochs", 2))
+    fg_steps = (("training.steps_per_epoch", 10), ("training.num_epochs", 2))
+    jobs = [{"name": "odom", "wd": wd("odom"), "store": "odom",
+             "argv": train_argv("odom", wd("odom"), refs["odom_dir"], *odom_steps)},
+            {"name": "fg", "wd": wd("fg"), "store": "fg",
+             "argv": train_argv("fg", wd("fg"), refs["fg_dir"], *fg_steps)},
+            bg_job("bg", 2), dict(bg_job("bg", 3, "--continue_training"), name="bg_resumed"),
+            bg_job("bg_straight", 3)]
+    env = {"GLOO_SOCKET_IFNAME": os.environ.get("GLOO_SOCKET_IFNAME", "lo")}
+    first_steps = {"odom": jobs[0]["argv"], "fg": jobs[1]["argv"], "bg": jobs[2]["argv"]}
+    spec = {"stores": stores, "jobs": jobs, "addr": f"127.0.0.1:{free_port()}",
+            "first_steps": first_steps, "measure": bg_train_argv(wd("measure"), data, steps)}
+    r0, r1 = dp_launch(spec, root, "gloo", 2, env, 480)
+    gaps, one_store = {}, {"odom": refs["odom_store"], "fg": refs["fg_store"],
+                           "bg": refs["bg_store"]}
+    for name, want in (("odom", refs["odom"]), ("fg", refs["fg"]), ("bg", refs["bg"])):
+        a, b = r0[name], r1[name]
+        same = a["history"] == b["history"] and all(
+            torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+        finite = all(np.isfinite(h[s]["loss"]) for h in a["history"] for s in ("train", "val"))
+        state, worst, over, adam = state_gap(a["state"], want[1], refs["adam"].get(name))
+        two32 = r0[f"first_step_{name}_{torch.float32}"]
+        one32 = first_step(first_steps[name], one_store[name])
+        step_grad, step_excess = step_gaps(two32, one32, two32[2], adam=name != "bg")
+        g = gaps[name] = {
+            "loss": loss_gaps(a["history"], want[0]), "state": state, "worst": worst,
+            "entries_over": over, "adam": adam, "ranks_equal": same, "steps": a["step"],
+            "secs": a["secs"], "first_step_grad": step_grad,
+            "first_step_excess": step_excess}
+        print(f"[dp] (b) {name} over two gloo ranks ({a['step']} steps in {a['secs']:.1f} "
+              f"s): epoch losses {g['loss']:.3e} apart relative from one process, "
+              f"parameters and statistics {state:.3e} of their tensor's largest entry "
+              f"(worst {worst}: {over} entries over 1e-4, there Adam's {adam}); ranks "
+              f"equal {same}; one first step on the card: gradients {step_grad:.3e} of "
+              f"their tensor's largest entry apart, parameters {step_excess:.3e} over "
+              f"the step's rounding bound")
+        if not (same and finite):
+            failures.append(f"{name}: the ranks disagree or a loss is not finite")
+        if name not in FLOAT64_HELD:
+            if not (g["loss"] < 1e-4 and state < 1e-4):
+                failures.append(f"{name}: two ranks are not the one-process run")
+            continue
+        # Held to a float64 step (PERF.md, §6): the same first step in
+        # float64 on two ranks and in one process must agree to float64
+        # rounding, and the two-rank f32 step must be no farther from the
+        # float64 step than the one-process f32 step is (twice, + a floor),
+        # as phase 16 holds the card to the CPU
+        two64 = r0[f"first_step_{name}_{torch.float64}"]
+        one64 = first_step(first_steps[name], one_store[name], dtype=torch.float64)
+        stats = [k for k in one64[1] if "running" in k]
+        exact = max(step_gaps(two64, one64, one64[2], adam=name != "bg")[0],
+                    state_gap(two64[1], one64[1], keys=stats)[0])
+        l2 = {"two_f32": rel_l2(two32[0], one64[0]), "one_f32": rel_l2(one32[0], one64[0])}
+        st = {"two_f32": state_gap(two32[1], one64[1], keys=stats)[0],
+              "one_f32": state_gap(one32[1], one64[1], keys=stats)[0]}
+        excess = max(l2["two_f32"] - (2 * l2["one_f32"] + 1e-3),
+                     st["two_f32"] - (2 * st["one_f32"] + 1e-5))
+        g.update(float64_two_vs_one=exact, grad_l2_from_f64=l2, stats_from_f64=st,
+                 float64_excess=excess)
+        print(f"[dp] (b) {name} first step in float64: two ranks against one process "
+              f"{exact:.3e} of a tensor's largest entry (gradients"
+              f"{', BN statistics' if stats else ''}; limit 1e-6); in f32, gradients "
+              f"{l2['two_f32']:.3e} (two ranks) and {l2['one_f32']:.3e} (one process) "
+              f"relative L2 from the float64 step, statistics {st['two_f32']:.3e} and "
+              f"{st['one_f32']:.3e}; two ranks {excess:.3e} over twice one process's "
+              f"+ 1e-3 / 1e-5 (limit 0)")
+        if not (exact < 1e-6 and excess <= 0):
+            failures.append(f"{name}: the two-rank step is not the one-process step")
+        if name == "fg" and not g["loss"] < 1e-4:
+            failures.append("fg: the two-rank epoch losses are not the one-process ones")
+    resume_gap = loss_gaps(r0["bg_resumed"]["history"], r0["bg_straight"]["history"][2:])
+    print(f"[dp] (b) bg epoch 3 resumed on two ranks against a straight two-rank run: "
+          f"losses {resume_gap:.3e} apart relative (limit 1e-3)")
+    if [h["epoch"] for h in r0["bg_resumed"]["history"]] != [3] or not resume_gap < 1e-3:
+        failures.append("the resumed two-rank bg epoch differs from the straight run's")
+    writes = {name: r1[name]["writes"] for name in r1
+              if name != "measure" and not name.startswith("first_step")}
+    missing = {j["name"]: [f for f in DP_FILES if not os.path.isfile(os.path.join(j["wd"], f))]
+               for j in jobs}
+    launches = {name: {r: res[name]["launches"] for r, res in enumerate((r0, r1))}
+                for name in writes}
+    print(f"[dp] (b) rank 1 wrote under the working dirs: {json.dumps(writes)}; rank 0's "
+          f"files missing: {json.dumps(missing)}; kernel launches of both ranks: "
+          f"{json.dumps({k: sum(sum(r.values()) for r in v.values()) for k, v in launches.items()})}")
+    if any(writes.values()) or any(missing.values()):
+        failures.append("rank 1 wrote a file, or rank 0 did not write its files")
+    if any(v for run in launches.values() for r in run.values() for v in r.values()):
+        failures.append("two-rank training launched a kernel of the port")
+
+    # (c) rank 0's trained bg weights served through K2, against phase 16's
+    k2, batches, frames, ms, differ, near_tie, pixels, apart, apart_tie = serve_trained(
+        wd("bg"), data, refs["bg_store"], dev,
+        other=canvases(os.path.join(refs["bg_wd"], "bg_trained")))
+    print(f"[dp] (c) two-rank bg best_model served: launches {json.dumps(k2)} for "
+          f"{batches} bg batches; class maps against its unfolded eval graph: {differ} of "
+          f"{pixels} pixels differ, {near_tie} of them at top-2 logit gaps < 1e-3; "
+          f"{apart} pixels unlike the one-process checkpoint's export ({apart_tie} at "
+          f"such gaps: bg is held to a float64 step, its f32 runs drift apart)")
+    if k2["onehot_stem_conv"] != batches or sum(k2.values()) != batches:
+        failures.append(f"serving the two-rank bg weights launched {k2}")
+    if not differ < 1e-3 * pixels or differ > near_tie:
+        failures.append("the served two-rank maps differ from its unfolded graph's")
+
+    # (d) readings
+    m = r0["measure"]
+    c = m["collectives"]
+    print(f"[dp] (d) bg step on rank 0 of two gloo ranks sharing one card (no scaling "
+          f"figure: both ranks compute on the same card), {m['rows']} rows a rank: "
+          f"{m['step_ms_median']:.2f} ms median ({m['step_ms_min']:.2f}-"
+          f"{m['step_ms_max']:.2f}); all-reduces a step: BN forward "
+          f"{c['bn_forward']['calls']} ({c['bn_forward']['bytes']} B), valid count "
+          f"{c['valid_count']['calls']}, BN backward {c['bn_backward']['calls']} "
+          f"({c['bn_backward']['bytes']} B), gradient {c['gradient']['calls']} "
+          f"({m['gradient_floats']} f32, {c['gradient']['bytes']} B); with each "
+          f"synchronised and timed the step takes {m['counted_step_ms_median']:.2f} ms, "
+          f"{m['collective_ms_median']:.2f} of them inside the all-reduces "
+          f"(BN forward {c['bn_forward']['ms_median']:.2f}, backward "
+          f"{c['bn_backward']['ms_median']:.2f}, gradient {c['gradient']['ms_median']:.2f})"
+          f" | {card}")
+    if not m["sharded"] or not m["calls_same_every_step"]:
+        failures.append("the measured bg steps were not sharded alike")
+    phase_s = time.perf_counter() - ts0
+    readings = {"nccl": {"backend": nccl["backend"], "bit_equal": nccl_equal,
+                         "secs": nccl["secs"]},
+                "gaps": gaps, "resume_loss_gap": resume_gap,
+                "serve": {"launches": k2, "batches": batches, "pixels": pixels,
+                          "pixels_apart": apart, "near_tie": apart_tie},
+                "bg_step": {"rank0": m, "rank1": r1["measure"]}, "card": card,
+                "phase_s": phase_s}
+    print(f"[dp] phase 17 took {phase_s:.1f} s")
+    if failures:
+        raise SystemExit("phase 17: " + "; ".join(failures))
     return readings
 
 
@@ -2413,8 +2949,10 @@ def main() -> int:
         cli_launches, cli_readings, fixtures = cli_phase(dev, root)
         score_readings = score_phase(dev, fixtures, card)
         staged_readings = staged_phase(dev, fixtures, card)
-        train_readings = train_phase(dev, root, card)
-        train_readings["bg"] = bg_train_phase(dev, root, card)
+        refs = {}
+        train_readings = train_phase(dev, root, card, refs)
+        train_readings["bg"] = bg_train_phase(dev, root, card, refs)
+        train_readings["dp"] = dp_phase(dev, root, card, refs)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
@@ -2511,4 +3049,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -3,7 +3,10 @@ overlap helpers.
 
 Counterpart of ``panoptic_forecasting_tpu/cli/common.py``. The config's
 ``platform`` key picks the device: ``cpu`` runs on the CPU, anything else
-(or nothing) on ``cuda``, which raises when CUDA is absent.
+(or nothing) on ``cuda``, which raises when CUDA is absent. With
+``distributed`` the process joins its group first
+(``parallel/mesh.py::init_distributed``) and runs on its own card,
+``cuda:{LOCAL_RANK}``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from ..core import build_dataset, build_model
 from ..core import checkpoint as ckpt
 from ..core.config import Config
 from ..device import resolve_device
+from ..parallel.mesh import init_distributed
 
 
 def seed_everything(seed: int) -> None:
@@ -43,11 +47,13 @@ def config_device(cfg) -> torch.device:
 
 
 def setup(cfg: Config, test: bool = False) -> Tuple[Config, Any, Any]:
-    """seed -> build datasets -> build the model on the config's device.
-    Outside ``test`` the train split is built and its statistics are on
-    the data card before the model reads them. Returns (cfg, task data,
-    model)."""
+    """device -> process group (``distributed``) -> seed -> build datasets
+    -> build the model on the config's device. Outside ``test`` the train
+    split is built and its statistics are on the data card before the
+    model reads them. Returns (cfg, task data, model)."""
     device = config_device(cfg)
+    if init_distributed(cfg) and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     seed_everything(int(cfg.get("seed", 0)))
     task_data = build_dataset(cfg, test=test)
     if cfg.get("load_torch_model"):

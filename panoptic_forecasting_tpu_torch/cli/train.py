@@ -13,6 +13,16 @@ Usage:
         [--set a.b v ...] [--set platform cpu]
 
 It runs on ``cuda`` and raises without it, unless ``platform`` is ``cpu``.
+Data-parallel over N ranks with the JAX mesh's global-batch semantics
+(``parallel/mesh.py``; NCCL on the cards, gloo with ``platform cpu``),
+one process per card:
+
+    torchrun --nproc_per_node N -m panoptic_forecasting_tpu_torch.cli.train \
+        --distributed --working_dir DIR --config_file ...
+    python -m panoptic_forecasting_tpu_torch.cli.train --distributed \
+        --coordinator_address HOST:PORT --num_processes N --process_id I ...
+
+Every rank gets the same arguments; process 0 alone writes the files.
 """
 
 from __future__ import annotations

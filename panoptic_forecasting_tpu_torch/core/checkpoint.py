@@ -7,7 +7,8 @@ train.py:139-141, 275-289): per run ``working_dir/best_model`` (val-best),
 at, best val result and epoch, step, optimizer state), the JAX package's
 names. Each is one file written by ``torch.save`` and an atomic rename: a
 module's ``state_dict`` (CPU tensors), or the trainer's dict of tensors
-and plain values, read back with ``weights_only``. Orbax directories of
+and plain values, read back with ``weights_only``; in a distributed run
+process 0 alone writes them. Orbax directories of
 the JAX package are not read (carry JAX weights across with
 ``models/convert.py``).
 
@@ -24,6 +25,8 @@ import os
 from typing import Any, Dict, Mapping
 
 import torch
+
+from ..parallel.mesh import is_main_process
 
 BEST = "best_model"
 LATEST = "model_checkpoint"
@@ -49,7 +52,9 @@ def load_weights(module: torch.nn.Module, state: Mapping[str, torch.Tensor]
 
 
 def _save(path: str, obj: Any) -> str:
-    """``torch.save`` to ``path`` by an atomic replace."""
+    """``torch.save`` to ``path`` by an atomic replace, process 0 only."""
+    if not is_main_process():
+        return path
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp_new"
     torch.save(obj, tmp)

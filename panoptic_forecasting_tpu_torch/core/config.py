@@ -11,8 +11,12 @@ read or written.
 ``save_config`` writes the merged config to ``working_dir/config.yaml``
 (reference utils/misc.py:22-26). ``--platform`` picks the device of the
 CLIs (``cli/common.py``): ``cpu`` runs on the CPU, anything else on
-``cuda``. The JAX package's multi-process flags (``--distributed`` and
-its coordinator) are not ported yet.
+``cuda``. ``--distributed`` joins a process group before anything is
+built (``parallel/mesh.py::init_distributed``): at the coordinator given
+by ``--coordinator_address``, ``--num_processes`` and ``--process_id``,
+or, without them, through torchrun's environment; the keys land in the
+config as the JAX package's ``load_config`` writes them. Only process 0
+writes ``config.yaml``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from __future__ import annotations
 import argparse
 import os
 from typing import Any, Dict, Optional, Sequence
+
+from ..parallel.mesh import is_main_process
 
 
 def coerce_value(val: str) -> Any:
@@ -108,12 +114,14 @@ class Config(dict):
 
 
 def save_config(cfg: Dict, working_dir: str) -> str:
-    """Write the merged config to ``working_dir/config.yaml``; returns the
-    path."""
+    """Write the merged config to ``working_dir/config.yaml`` (process 0
+    only); returns the path."""
     import yaml
 
-    os.makedirs(working_dir, exist_ok=True)
     path = os.path.join(working_dir, "config.yaml")
+    if not is_main_process():
+        return path
+    os.makedirs(working_dir, exist_ok=True)
     with open(path, "w") as f:
         yaml.safe_dump(Config(cfg).to_dict(), f, sort_keys=False)
     return path
@@ -142,6 +150,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--load_best_model", action="store_true")
     p.add_argument("--platform", default=None,
                    help="device: cpu, else cuda (the default)")
+    # Data parallelism (reference utils/dist.py:12-32): under torchrun
+    # --distributed alone reads its environment; the coordinator keys
+    # serve manual launches and the CPU tests.
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed process group before building")
+    p.add_argument("--coordinator_address", default=None, help="HOST:PORT of rank 0")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument(
         "--set",
         dest="overrides",
@@ -181,6 +197,11 @@ def load_config(argv: Optional[Sequence[str]] = None) -> Config:
     cfg["load_best_model"] = bool(args.load_best_model)
     if args.platform:
         cfg["platform"] = args.platform
+    if args.distributed:
+        cfg["distributed"] = True
+        for k in ("coordinator_address", "num_processes", "process_id"):
+            if getattr(args, k) is not None:
+                cfg[k] = getattr(args, k)
 
     for dotted, raw in args.overrides:
         apply_dotted_override(cfg, dotted, coerce_value(raw))

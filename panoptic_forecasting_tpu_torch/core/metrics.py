@@ -7,6 +7,7 @@ key of the model's loss dict becomes an epoch-averaged scalar
 (train.py:227-230, 268-271), one JSON line each ``{ts, split, step,
 ...scalars}`` in ``working_dir/logs/metrics.jsonl``, and, where the
 package imports, a TensorBoard event file under ``working_dir/logs/<split>``.
+In a distributed run process 0 alone writes (JAX :26, :35).
 """
 
 from __future__ import annotations
@@ -17,19 +18,26 @@ import os
 import time
 from typing import Dict, Iterator, List, Sequence
 
+from ..parallel.mesh import is_main_process
+
 
 class SplitWriter:
     def __init__(self, working_dir: str, split: str, jsonl_path: str):
         self.split = split
         self._jsonl_path = jsonl_path
+        self._tb = None
+        if not is_main_process():
+            return
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
-            self._tb = None
+            pass
         else:
             self._tb = SummaryWriter(os.path.join(working_dir, "logs", split))
 
     def add_scalars(self, scalars: Dict[str, float], step: int) -> None:
+        if not is_main_process():
+            return
         if self._tb is not None:
             for k, v in scalars.items():
                 self._tb.add_scalar(k, float(v), global_step=step)
@@ -47,7 +55,8 @@ class SplitWriter:
 @contextlib.contextmanager
 def build_writers(working_dir: str, splits: Sequence[str]) -> Iterator[List[SplitWriter]]:
     """One ``SplitWriter`` per split, closed on exit."""
-    os.makedirs(os.path.join(working_dir, "logs"), exist_ok=True)
+    if is_main_process():
+        os.makedirs(os.path.join(working_dir, "logs"), exist_ok=True)
     jsonl = os.path.join(working_dir, "logs", "metrics.jsonl")
     writers = [SplitWriter(working_dir, s, jsonl) for s in splits]
     try:

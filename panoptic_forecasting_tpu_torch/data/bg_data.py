@@ -27,7 +27,8 @@ The train split outside test mode (JAX :108-155, 203-205):
   written with ``np.save``, which appends ``.npy`` to a name without it:
   the configs' ``depth_norm_params.npz`` is written as
   ``depth_norm_params.npz.npy``, never found again, and recomputed on
-  every run, as in the JAX package;
+  every run, as in the JAX package (in a distributed run process 0
+  writes it; every rank computes the same statistics);
 * augmentation: ``RandomScaleCrop`` (``crop_size``, ``scale_min``,
   ``scale_max``; off with ``no_resize_crop``) then
   ``RandomHorizontalFlip``, after ``Resize`` when one is configured;
@@ -45,6 +46,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from ..parallel.mesh import is_main_process
 from . import io
 from .cards import DataCard
 from .transforms import RandomHorizontalFlip, RandomScaleCrop, Resize
@@ -114,7 +116,7 @@ class BGDataset:
                 mean, std = float(allv.mean()), float(allv.std())
             else:
                 mean, std = 0.0, 1.0
-            if stats_file:
+            if stats_file and is_main_process():
                 os.makedirs(os.path.dirname(stats_file) or ".", exist_ok=True)
                 np.save(stats_file, np.array([mean, std], np.float32))
         card.set_stats("depth", np.array([mean]), np.array([std]))

@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..parallel.mesh import is_main_process
+
 
 @dataclasses.dataclass
 class DataCard:
@@ -89,7 +91,10 @@ class DataCard:
         )
 
     def save(self, working_dir: str) -> str:
+        """Write ``working_dir/data_card.json`` (process 0 only)."""
         path = os.path.join(working_dir, "data_card.json")
+        if not is_main_process():
+            return path
         os.makedirs(working_dir, exist_ok=True)
         with open(path, "w") as f:
             f.write(self.to_json())

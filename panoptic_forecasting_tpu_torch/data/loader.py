@@ -7,7 +7,9 @@ moves them to its device. Shuffled, ``drop_last``, weighted sampling
 (train.py:39-44) and ``steps_per_epoch`` epochs that reshuffle when the
 order runs out, drawing its numbers as JAX's loader does, so that one
 seed gives the same sample sequence in both packages. A thread pool per
-batch and a background prefetch thread.
+batch and a background prefetch thread. A ``shard`` loader in a
+distributed run fetches only its rank's rows of each global batch
+(``parallel/mesh.py::shard_rows``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+
+from ..parallel.mesh import shard_rows
 
 
 def _background_prefetch(it: Iterator, depth: int) -> Iterator:
@@ -104,7 +108,13 @@ class Loader:
     (order kept); ``prefetch`` > 0 prepares that many batches ahead on a
     background thread. Each epoch's order comes from
     ``RandomState(rng.randint(2**31) + epoch)`` of the loader's own
-    ``RandomState(seed)`` (``rng_state`` carries it across a resume)."""
+    ``RandomState(seed)`` (``rng_state`` carries it across a resume).
+
+    With ``shard`` every rank draws the same global batches and fetches
+    only its rows of each (``shard_rows``), so the ranks' batches,
+    concatenated, are the one-process batch; a batch split so carries
+    ``"sharded": True``, one replicated (its size not divisible by the
+    world) does not."""
 
     def __init__(
         self,
@@ -118,6 +128,7 @@ class Loader:
         seed: int = 0,
         prefetch: int = 0,
         num_threads: int = 0,
+        shard: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -130,6 +141,7 @@ class Loader:
         self._epoch = 0
         self.prefetch = int(prefetch)
         self.num_threads = int(num_threads)
+        self.shard = shard
         self._pool = None
         if self.num_threads > 0:
             from concurrent.futures import ThreadPoolExecutor
@@ -188,7 +200,11 @@ class Loader:
 
     def _epoch_iter(self) -> Iterator[Dict[str, Any]]:
         for idx in self.batch_indices():
-            yield self.collate(self._fetch(idx))
+            rows = shard_rows(idx) if self.shard else idx
+            batch = self.collate(self._fetch(rows))
+            if len(rows) < len(idx):
+                batch["sharded"] = True
+            yield batch
 
     def batch_indices(self) -> Iterator[np.ndarray]:
         """The sample indices of each batch of one epoch."""

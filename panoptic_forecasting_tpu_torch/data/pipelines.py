@@ -26,7 +26,7 @@ class TaskData:
     collate_fn: Callable = default_collate
 
     def loader(self, split: str, cfg: Dict[str, Any], test: bool = False,
-               seed: int = 0) -> Loader:
+               seed: int = 0, shard: bool = False) -> Loader:
         """The train split outside ``test``: shuffled batches of
         ``training.batch_size``, the last short one dropped, ``sample_weights``
         (top-level) drawn with replacement, and with
@@ -35,13 +35,14 @@ class TaskData:
         in order of ``training.val_batch_size`` or ``batch_size``.
         ``training.num_data_threads`` (default min(8, cores)) threads fetch
         each batch's samples and ``training.prefetch_batches`` (default 2
-        with threads) batches are prepared ahead."""
+        with threads) batches are prepared ahead. ``shard``: each rank
+        fetches only its rows of a global batch (the trainer's loaders)."""
         t = cfg.get("training", {})
         bs = int(t.get("batch_size", 32))
         threads = int(t.get("num_data_threads", min(8, os.cpu_count() or 1)))
         prefetch = int(t.get("prefetch_batches", 2 if threads else 0))
         kw = dict(collate_fn=self.collate_fn, seed=seed, prefetch=prefetch,
-                  num_threads=threads)
+                  num_threads=threads, shard=shard)
         if split != "train" or test:
             return Loader(self.datasets[split], int(t.get("val_batch_size") or bs),
                           **kw)

@@ -34,10 +34,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.stem import assemble_onehot, onehot_stem_conv
+from ..parallel.mesh import batch_is_sharded
 from .hardnet import HarDNet, fold_batchnorm_
 
 
@@ -176,16 +178,30 @@ class BGModel(nn.Module):
         (or the input size) of ``batch["inputs"]`` (JAX ``predict``)."""
         return {"seg": self(batch["inputs"], return_argmax=True)}
 
+    # A shard's loss is its share of the global batch's: the ranks' losses
+    # add up to it, and the trainer sums their gradients.
+    loss_adds_over_shards = True
+
     def loss(self, batch: Dict[str, Any]):
         """-> (mean CE, {"loss", "accuracy"}): the cross entropy of the
         logits against ``labels.seg`` over the pixels not 255, and the
         pixel accuracy there, each divided by max(valid pixels, 1), so an
-        all-ignored batch gives 0 (JAX ``loss``)."""
+        all-ignored batch gives 0 (JAX ``loss``).
+
+        The mean is over the valid pixels of the whole global batch (JAX
+        :305-306). On a sharded batch the denominator is therefore the
+        global valid count (all-reduced, no gradient) and the numerator
+        stays this rank's: shards with different ignore-255 counts must
+        not average their own means, which would weight pixels unequally.
+        Both values are then this rank's shares (``loss_adds_over_shards``)."""
         logits = self(batch["inputs"])
         labels = torch.as_tensor(batch["labels"]["seg"],
                                  device=logits.device).long()
         valid = labels != 255
-        total = valid.sum().clamp(min=1)
+        total = valid.sum()
+        if batch_is_sharded():
+            dist.all_reduce(total)
+        total = total.clamp(min=1)
         ce = F.cross_entropy(logits, labels, ignore_index=255, reduction="none")
         loss = ce.sum() / total
         hits = valid & (logits.detach().argmax(1) == labels)

@@ -230,8 +230,10 @@ class FGModel(nn.Module):
         return torch.stack(trajs, 1), torch.stack(feat_steps, 1)
 
     def _tensor(self, batch, name) -> torch.Tensor:
+        """A float input in the model's dtype (f32; float64 after
+        ``.double()``)."""
         return torch.as_tensor(batch[name], device=self.traj_mean.device).to(
-            torch.float32)
+            self.traj_mean.dtype)
 
     def _feats(self, batch, name) -> torch.Tensor:
         """ROI feats (..., C, hw, hw) f32; an NHWC array is moved."""
@@ -303,6 +305,11 @@ class FGModel(nn.Module):
         }
 
     # -- losses (JAX models/fg.py:446-541) ---------------------------------
+    # The loss is the mean of per-sample losses (JAX :459-461): on equal
+    # shards the mean of the ranks' means is the global mean, so the
+    # trainer averages the ranks' gradients.
+    loss_adds_over_shards = False
+
     def loss(self, batch: Dict[str, Any]):
         """A dense instance batch ``(B, T, ...)`` -> (mean loss, metrics of
         per-sample (B,) vectors, ``loss`` among them), differentiable."""

@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_sum, batch_is_sharded
+
 
 # FCHarDNet-70 (hardnet.py:261-327)
 FIRST_CH = (16, 24, 32, 48)
@@ -108,6 +110,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     with the unbiased variance, and raises on one value per channel,
     where this variance is 0). In eval mode the running statistics
     normalise.
+
+    On a sharded batch (``parallel/mesh.py::batch_is_sharded``: this
+    rank holds its share of the global batch) the statistics are the
+    global batch's, as flax takes them over JAX's sharded batch axis:
+    one all-reduce of ``[Σx, Σx², n]`` a layer (``all_reduce_sum``,
+    whose backward all-reduces the gradient), then ``mean = Σx/n`` and
+    ``var = max(0, Σx²/n − mean²)``; the running statistics move with
+    them, equal on every rank. Otherwise no collective runs.
     """
 
     def __init__(self, num_features: int):
@@ -118,8 +128,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = (0, 2, 3)
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        if batch_is_sharded():
+            c = x.shape[1]
+            n = x.new_full((1,), x.numel() // c)
+            total = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims), n]))
+            mean = total[:c] / total[2 * c]
+            var = torch.clamp(total[c: 2 * c] / total[2 * c] - mean * mean, min=0.0)
+        else:
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
             self.running_var.copy_(0.9 * self.running_var + 0.1 * var)

@@ -103,6 +103,11 @@ class OdomModel(nn.Module):
         each (B, output_len, 2)."""
         return self._forecast(inp_odom)
 
+    # The loss is the mean of per-sample losses (JAX models/odom.py:159-160):
+    # on equal shards the mean of the ranks' means is the global mean, so
+    # the trainer averages the ranks' gradients.
+    loss_adds_over_shards = False
+
     def loss(self, batch: Dict[str, Any]):
         """-> (mean loss, {"loss": per-sample loss (B,)}), differentiable."""
         preds, normalized = self._forecast(batch["inputs"]["odometry"])

@@ -26,6 +26,17 @@ starts a fresh loader on resume); a state without it starts the loader
 afresh, as JAX does. ``training.profile_dir`` writes a ``torch.profiler``
 trace of the first ``profile_steps`` steps; ``training.verbose`` prints
 each batch's loss (a host sync a batch).
+
+In a distributed run (``parallel/mesh.py``) every rank trains on its
+rows of the JAX mesh's global batch, which ``training.batch_size`` must
+divide over the world: the BN statistics and the bg loss's valid count
+are global within the step, the gradients are all-reduced once per
+optimizer step before the clip (summed for a loss whose shards add up
+to it, averaged for a per-sample mean: the model's
+``loss_adds_over_shards``), the metric sums and counts once an epoch,
+validation shards the same way, and process 0 alone writes; the others
+wait at a barrier after each epoch's writes and before a resume reads.
+The ranks' parameters are checked equal once, after init or load.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import torch
 
 from ..core import checkpoint as ckpt
 from ..models.base import init_weights
+from ..parallel import mesh
 from .optim import build_optimizer, lr_for_epoch
 
 
@@ -56,23 +68,42 @@ def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
 
 class _Sums:
     """Metric sums over an epoch, on the device until ``means``; the count
-    is ``loss``'s samples (1 for a scalar loss)."""
+    is ``loss``'s samples (1 for a scalar loss).
+
+    Distributed, each rank adds its share and ``means`` all-reduces sums
+    and count once: a sharded batch's per-sample vectors add their rows
+    and counts; a sharded scalar (bg's) is the rank's share of the batch's
+    value and counts once, on process 0; a replicated batch counts once,
+    on process 0 (the others add zeros)."""
 
     def __init__(self):
         self.sums, self.count = None, 0
 
-    def add(self, metrics: Dict[str, torch.Tensor]) -> None:
-        sums = {k: v.detach().sum().float() for k, v in metrics.items()}
+    def add(self, metrics: Dict[str, torch.Tensor], sharded: bool = False) -> None:
+        main = mesh.is_main_process()
+        if sharded or main:
+            sums = {k: v.detach().sum().float() for k, v in metrics.items()}
+            loss = metrics["loss"]
+            count = loss.numel() if loss.dim() else int(main)
+        else:
+            sums = {k: torch.zeros((), device=v.device) for k, v in metrics.items()}
+            count = 0
         self.sums = sums if self.sums is None else {
             k: self.sums[k] + v for k, v in sums.items()}
-        loss = metrics["loss"]
-        self.count += loss.numel() if loss.dim() else 1
+        self.count += count
 
     def means(self) -> Dict[str, float]:
         if self.sums is None:
             return {}
-        n = float(max(self.count, 1))
-        return {k: float(v) / n for k, v in self.sums.items()}
+        sums, count = self.sums, self.count
+        if mesh.world_size() > 1:
+            keys = list(sums)
+            total = torch.stack([sums[k] for k in keys]
+                                + [sums[keys[0]].new_tensor(float(count))])
+            torch.distributed.all_reduce(total)
+            sums, count = dict(zip(keys, total[:-1])), int(total[-1])
+        n = float(max(count, 1))
+        return {k: float(v) / n for k, v in sums.items()}
 
 
 def _loader_state(loader) -> Dict[str, Any]:
@@ -116,11 +147,18 @@ def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
     working_dir = cfg["working_dir"]
     verbose = bool(t.get("verbose"))
     device = next(model.parameters()).device
+    batch_size, world = int(t.get("batch_size", 32)), mesh.world_size()
+    if batch_size % world:
+        raise ValueError(
+            f"training.batch_size {batch_size} does not divide over {world} ranks. "
+            "JAX sizes its mesh to the largest device count that divides the batch "
+            "(train/loop.py), leaving the other devices idle; launch a number of "
+            "ranks that divides the batch")
 
     train_writer = writers[0] if writers else None
     val_writer = writers[1] if writers and len(writers) > 1 else None
-    train_loader = task_data.loader("train", cfg, seed=seed)
-    val_loader = (task_data.loader("val", cfg, seed=seed)
+    train_loader = task_data.loader("train", cfg, seed=seed, shard=True)
+    val_loader = (task_data.loader("val", cfg, seed=seed, shard=True)
                   if "val" in task_data.datasets else None)
 
     init_weights(model, seed)
@@ -130,6 +168,7 @@ def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
     lr_sched = lr_for_epoch(cfg)
 
     start_epoch, best_val_epoch, best_val_result, step = 1, -1, 1e7, 0
+    mesh.barrier()  # a resume reads what the previous run's process 0 wrote
     if cfg.get("continue_training") and ckpt.has_trainer_state(working_dir):
         ckpt.load_model(working_dir, model)
         state = ckpt.load_trainer_state(working_dir)
@@ -141,13 +180,16 @@ def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
         if "loader_state" in state:
             _set_loader_state(train_loader, state["loader_state"])
         print(f"RESUMING TRAINING AT EPOCH {start_epoch}")
+    mesh.check_replicas_agree(model.state_dict().values())
 
     def run_val() -> Dict[str, float]:
         model.eval()
         sums = _Sums()
         with torch.no_grad():
             for batch in val_loader:
-                sums.add(model.loss(to_device(batch, device))[1])
+                sharded = batch.pop("sharded", False)
+                with mesh.sharded_batch(sharded):
+                    sums.add(model.loss(to_device(batch, device))[1], sharded)
         return sums.means()
 
     profile_dir = t.get("profile_dir")
@@ -165,15 +207,18 @@ def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
         opt.zero_grad()
         sums, micro = _Sums(), 0
         for batch_ind, batch in enumerate(train_loader):
-            mean_loss, metrics = model.loss(to_device(batch, device))
+            sharded = batch.pop("sharded", False)
+            with mesh.sharded_batch(sharded):
+                mean_loss, metrics = model.loss(to_device(batch, device))
             (mean_loss / accum).backward()
             micro += 1
             if micro == accum:
+                mesh.all_reduce_grads(opt.params, average=not model.loss_adds_over_shards)
                 opt.step()
                 opt.zero_grad()
                 micro = 0
                 step += 1
-            sums.add(metrics)
+            sums.add(metrics, sharded)
             if prof is not None and batch_ind + 1 >= profile_steps:
                 _stop_profiler(prof, profile_dir, device)
                 prof = None
@@ -210,6 +255,7 @@ def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
             "opt_state": opt.state_dict(),
             "loader_state": _loader_state(train_loader),
         })
+        mesh.barrier()  # process 0's writes are done before the next epoch
         history.append({"epoch": epoch, "train": train_scalars, "val": val_scalars})
         print(
             f"EPOCH {epoch} ({time.time() - t0:.1f}s): "
