@@ -12,7 +12,9 @@ export_panoptic / export_instances -> evaluate_panoptic /
 evaluate_instances -> viz_panoptic (phase 14), training of the odometry
 and fg models (``cli.train``, phase 15) and of the bg model, whose
 trained weights then serve through K2 (phase 16), the same training
-data-parallel (``cli.train --distributed``, phase 17), and the single-call panoptic
+data-parallel (``cli.train --distributed``, phase 17), the same paths
+with ``model.compute_dtype: bfloat16`` and under each model option
+(phase 18), and the single-call panoptic
 forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
@@ -204,11 +206,35 @@ Phases (any failure exits non-zero):
      all-reduce of a step counted, sized and timed (BN forward and
      backward, the valid count, the gradient), with the card's name and
      power limit (both ranks share the card: no scaling figure).
+ 18. bf16 and the model options: (a) the forecast step of
+     bg_val_short.yaml + fg_val_short.yaml with model.compute_dtype
+     bfloat16 at 1024x2048, counted (K1 once, K2 once, through its bf16
+     entry, whose output equals the f32 entry's rounded to bf16 bit for
+     bit, on the step's stem inputs and 6 edge shapes), its class map
+     against the same weights' f32 step (>= 0.98 of bg pixels equal), both
+     steps' ms and busy share; (b) the bf16 models on the card against the
+     CPU's at 256x512: bg logits, the fg forecast's trajectories, masks and
+     mask features no farther from the CPU's bf16 than the CPU's bf16 from
+     its f32 (relative L2), class maps equal off top-2 gaps < 0.05, the
+     step's ids equal and its panoptic maps no farther apart than the
+     CPU's bf16 and f32 maps; (c) fg_train.yaml and bg_train.yaml in bf16: 7
+     fixed-batch steps each (losses finite and falling), ms, samples/s,
+     peak memory and busy beside phases 15-16's f32 steps, and one narrow
+     fg step on the card against the CPU's bf16 step (the same yardstick,
+     loss and weight gradients); (d) cli.forecast_fused on phase 12's
+     256x512 fixture under rnn_type lstm, each ablation flag,
+     use_bbox_ulbr and convert2onehot false (seeded weights of each
+     option's model), counted (K1 per frame, K2 per frame, none for raw
+     ids), against the same on the CPU (ids equal, < 1e-3 of pixels); a
+     4-step cli.train of fg_train.yaml with the LSTM (bias_ih_l0 still 0,
+     no kernel launched) and its narrow step against the CPU (phase 15's
+     bounds).
 
 Prints the card's name and power limit, one JSON line describing every
-kernel (both K1 entry points, K2, K3 and each K4 probe) and the CLI's,
-the scoring's, the staged chain's and the training's readings (bg's
-under ``train.bg``, data parallelism's under ``train.dp``), and last
+kernel (both K1 entry points, K2 and its bf16 entry, K3 and each K4
+probe) and the CLI's, the scoring's, the staged chain's, the training's
+(bg's under ``train.bg``, data parallelism's under ``train.dp``) and
+phase 18's readings (``bf16``), and last
 a JSON line
 {"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
@@ -1835,19 +1861,19 @@ def train_steps(argv, store, dev, steps=20, warmup=3, flops=None):
             "losses_finite": bool(np.isfinite(losses).all())}
 
 
-def one_step_gpu_cpu(root, dev):
+def one_step_gpu_cpu(root, dev, *sets, tag="narrow"):
     """One fg step from the same seeded weights and batch on the card and
-    on the CPU at narrow widths (a 32-channel 7x7 fixture): ({platform:
-    loss}, loss relative difference, largest gradient difference over its
-    tensor's largest entry, largest parameter excess over the Adam
-    bound)."""
-    fg = os.path.join(root, "fg_narrow")
+    on the CPU at narrow widths (a 32-channel 7x7 fixture), with dotted
+    ``sets``: ({platform: loss}, loss relative difference, largest
+    gradient difference over its tensor's largest entry, largest
+    parameter excess over the Adam bound)."""
+    fg = os.path.join(root, f"fg_{tag}")
     store = synthetic.write_fg_fixture(fg, n_scenes=3, max_instances=3, seed=SEED,
                                        feat_channels=32, feat_hw=7)
     out = {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        argv = train_argv("fg", os.path.join(root, f"narrow_{name}"), fg,
-                          ("platform", name), *NARROW_FG)
+        argv = train_argv("fg", os.path.join(root, f"{tag}_{name}"), fg,
+                          ("platform", name), *NARROW_FG, *sets)
         with store_readers(store):
             cfg, data, model = setup(load_config(argv))
             batch = next(iter(data.loader("train", cfg, seed=SEED)))
@@ -2734,6 +2760,369 @@ def dp_phase(dev, root, card, refs):
     return readings
 
 
+# ---- 18. bf16 and the model options ---------------------------------------------
+
+BF16 = {"compute_dtype": "bfloat16"}
+BF16_SET = ("model.compute_dtype", "bfloat16")
+# The bf16 step's bg class map may differ from the f32 step's (same
+# weights) on at most this share of pixels: bf16 flips near-ties.
+BF16_MAP_SHARE = 0.98
+BF16_MARGIN = 0.05  # top-2 logit gap under which bf16 maps may differ
+BF16_STEPS = 7  # fixed-batch bf16 training steps, the first 3 untimed
+# {option: (fg model keys, top-level keys, bg model keys)}
+OPTIONS = {
+    "lstm": ({"rnn_type": "lstm"}, {}, {}),
+    "only_loc_feats": ({"only_loc_feats": True}, {}, {}),
+    "no_traj_inst_feats": ({"no_traj_inst_feats": True}, {}, {}),
+    "no_mask_traj_feats": ({"no_mask_traj_feats": True}, {}, {}),
+    "only_input_odometry": ({"only_input_odometry": True}, {}, {}),
+    "use_bbox_ulbr": ({}, {"use_bbox_ulbr": True}, {}),
+    "convert2onehot_false": ({}, {}, {"convert2onehot": False}),
+}
+
+
+def ulbr_stats(width: int):
+    """``fg_stats`` with the box means as corners (x0, y0, x1, y1)."""
+    stats = fg_stats(width)
+    mean, std = stats["traj"]
+    c, s = mean[:4], std[:4]
+    corners = np.array([c[0] - c[2] / 2, c[1] - c[3] / 2, c[0] + c[2] / 2,
+                        c[1] + c[3] / 2])
+    return dict(stats, traj=(np.concatenate([corners, mean[4:]]),
+                             np.concatenate([s[:2] + s[2:] / 2, s[:2] + s[2:] / 2, std[4:]])))
+
+
+def config_models(device, height, width, bg_keys=None, fg_keys=None, top=None):
+    """The serving bg (folded) and fg models of configs/bg/bg_val_short.yaml
+    and configs/fg/fg_val_short.yaml with ``model.*`` keys set (as ``--set``
+    sets them), the bg output at height x width, weights from SEED as
+    ``make_models`` seeds them."""
+    bg_cfg = conf("bg", "bg_val_short.yaml")
+    bg_cfg["model"].update(final_h=height, final_w=width, **(bg_keys or {}))
+    bg_cfg["data"]["num_classes"] = 11  # the bg data card's
+    fg_cfg = conf("fg", "fg_val_short.yaml")
+    fg_cfg["model"].update(fg_keys or {})
+    fg_cfg.update(top or {})
+    bg = seeded_init_(BGModel(bg_cfg, depth_stats=DEPTH_STATS, device="cpu"), SEED)
+    stats = ulbr_stats(width) if fg_cfg.get("use_bbox_ulbr") else fg_stats(width)
+    fg = seeded_init_(FGModel(fg_cfg, stats=stats, device="cpu"), SEED + 1)
+    return bg.maybe_fold().to(device), fg.to(device)
+
+
+def device_inputs(pc_in, fg_in, dev):
+    pc_dev = {k: torch.as_tensor(v).to(dev) if k in ("seg", "depth", "depth_mask")
+              else torch.as_tensor(v) for k, v in pc_in.items()}
+    return pc_dev, {k: torch.as_tensor(v).to(dev) for k, v in fg_in.items()}
+
+
+def k2_bf16_edge_cases(dev):
+    """K2's bf16 entry equal, bit for bit, to its f32 entry's output
+    rounded to bf16 on the edge shapes of ``edge_cases``."""
+    g = torch.Generator().manual_seed(SEED + 18)
+    for b, t, h, w, c, depth in ((2, 3, 34, 66, 11, True), (1, 3, 20, 30, 11, False),
+                                 (1, 3, 46, 72, 11, True), (1, 3, 2, 64, 11, True),
+                                 (1, 3, 20, 64, 40, True), (1, 3, 18, 134, 11, True)):
+        seg = torch.randint(-2, c + 3, (b, t, h, w), generator=g, dtype=torch.int32)
+        dep = torch.randn(b, t, h, w, generator=g) if depth else None
+        kern = torch.randn(3, 3, t * c + (t if depth else 0), 16, generator=g) * 0.2
+        bias = torch.randn(16, generator=g)
+        args = [x.to(dev) if x is not None else None for x in (seg, dep, kern, bias)]
+        k16 = onehot_stem_conv(*args, num_classes=c, out_dtype=torch.bfloat16)
+        k32 = onehot_stem_conv(*args, num_classes=c).to(torch.bfloat16)
+        if not torch.equal(k16.view(torch.int16), k32.view(torch.int16)):
+            raise SystemExit(f"K2 bf16 differs from the f32 kernel rounded at "
+                             f"{(b, t, h, w, c, depth)}")
+
+
+def bf16_step_phase(dev, card):
+    """(a) the bf16 forecast step at full width, counted, against the same
+    weights' f32 step; K2's bf16 entry against its f32 entry; (b) the bf16
+    step's models on the card against the CPU's bf16 port at 256x512."""
+    pc_in, fg_in = make_inputs(H, W)
+    models = {"f32": config_models(dev, H, W),
+              "bf16": config_models(dev, H, W, BF16, BF16)}
+    bg16, fg16 = models["bf16"]
+    if (bg16.model.dtype != torch.bfloat16
+            or {p.dtype for m in models["bf16"] for p in m.parameters()} != {torch.float32}):
+        raise SystemExit("the bf16 config did not build bf16 compute over f32 parameters")
+    seg, dep, kern, bias = k2_inputs(bg16, pc_in, dev)
+    k16 = onehot_stem_conv(seg, dep, kern, bias, num_classes=11, out_dtype=torch.bfloat16)
+    k32 = onehot_stem_conv(seg, dep, kern, bias, num_classes=11)
+    plain16 = onehot_stem_conv_plain(seg, dep, kern, bias, num_classes=11).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    bit_equal = torch.equal(k16.view(torch.int16), k32.to(torch.bfloat16).view(torch.int16))
+    err = float((k16.float() - plain16.float()).abs().max())
+    k2_bf16_edge_cases(dev)
+    print(f"[bf16] K2 bf16 entry {tuple(k16.shape)}: bit-equal to the f32 kernel's "
+          f"output rounded to bf16: {bit_equal} (and on 6 edge shapes); against the "
+          f"plain version rounded: max abs diff {err:.3e}")
+    if not bit_equal:
+        raise SystemExit("K2's bf16 entry is not the f32 kernel rounded to bf16")
+
+    steps = {k: build_forecast_step(bg, fg, height=H, width=W, out_t=OUT_T)
+             for k, (bg, fg) in models.items()}
+    out32 = steps["f32"](pc_in, fg_in)
+    reset_counts()
+    onehot_stem_conv.bf16_launches = 0
+    out16 = steps["bf16"](pc_in, fg_in)
+    torch.cuda.synchronize()
+    launches = dict(read_counts(), onehot_stem_conv_bf16=onehot_stem_conv.bf16_launches)
+    print(f"[bf16] step {H}x{W}: launches {launches}")
+    if (launches["place_min_fold"], launches["onehot_stem_conv"],
+            launches["onehot_stem_conv_bf16"], launches["place_min"]) != (1, 1, 1, 0):
+        raise SystemExit(f"the bf16 step did not launch K1 once and K2's bf16 entry "
+                         f"once: {launches}")
+    painted = check_output(out16, H, W)
+    bg_share = float((out16["bg_seg"] == out32["bg_seg"]).float().mean())
+    pan_share = float((out16["panoptic"] == out32["panoptic"]).float().mean())
+    pc_dev, fg_dev = device_inputs(pc_in, fg_in, dev)
+    timing = {}
+    for k, step in steps.items():
+        ms = time_ms(lambda: step(pc_dev, fg_dev), 10, 2)
+        busy = device_ms(lambda: step(pc_dev, fg_dev), 5)
+        timing[k] = {"ms": ms, "busy_ms": busy, "busy_share": busy / ms}
+    print(f"[bf16] class maps of the bf16 step against the f32 step (same weights): "
+          f"bg {bg_share:.5f}, panoptic {pan_share:.5f} of pixels equal (limit bg >= "
+          f"{BF16_MAP_SHARE}); {painted:.3f} of pixels in instances")
+    for k, t in timing.items():
+        print(f"[bf16] {k} step {H}x{W} (device-resident inputs): {t['ms']:.2f} ms "
+              f"(CUDA events), device busy {t['busy_ms']:.2f} ms, busy share "
+              f"{t['busy_share']:.3f} | {card}")
+    if not bg_share >= BF16_MAP_SHARE:
+        raise SystemExit("the bf16 step's class map is too far from the f32 step's")
+
+    # (b) the card's bf16 port against the CPU's at 256x512
+    pc_s, fg_s = make_inputs(H_SMALL, W_SMALL)
+    res = {}
+    for name, d, keys in (("cuda16", dev, BF16), ("cpu16", torch.device("cpu"), BF16),
+                          ("cpu32", torch.device("cpu"), None)):
+        bg, fg = config_models(d, H_SMALL, W_SMALL, keys, keys)
+        pc_d, fg_d = device_inputs(pc_s, fg_s, d)
+        rep = pc_transform_predict(*pc_args(pc_d, d), height=H_SMALL, width=W_SMALL)
+        rd = rep["depth"].reshape(1, T_IN, H_SMALL, W_SMALL)
+        bg_in = {"seg": rep["seg"].reshape(1, T_IN, H_SMALL, W_SMALL),
+                 "depth": rd.clamp(min=0.0), "depth_mask": rd > 0}
+        flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in fg_d.items()
+                if k != "valid"}
+        out = build_forecast_step(bg, fg, height=H_SMALL, width=W_SMALL, out_t=OUT_T,
+                                  device=d)(pc_s, fg_s)
+        res[name] = (bg(bg_in), fg(flat, OUT_T), out)
+    gaps = {}
+    (lg, fgg, og), (lc, fgc, oc), (l32, fg32, _) = res["cuda16"], res["cpu16"], res["cpu32"]
+    for key, (a, b, c) in {"bg_logits": (lg, lc, l32), **{
+            k: (fgg[k], fgc[k], fg32[k])
+            for k in ("unnormalized_trajectory", "masks", "mask_feats")}}.items():
+        gaps[key] = (rel_l2({0: a.cpu()}, {0: b}), rel_l2({0: b}, {0: c}))
+    top2 = lc.topk(2, 1).values
+    clear = (top2[:, 0] - top2[:, 1]) >= BF16_MARGIN
+    map_differ = int(((lg.argmax(1).cpu() != lc.argmax(1)) & clear).sum())
+    ids_equal = torch.equal(og["ids"].cpu(), oc["ids"])
+    # the maps by the same yardstick: the card's bf16 no farther from the
+    # CPU's bf16 than that is from the CPU's f32 (bf16 moves mask
+    # thresholds and box edges)
+    pan_mis = (float((og["panoptic"].cpu() != oc["panoptic"]).float().mean()),
+               float((oc["panoptic"] != res["cpu32"][2]["panoptic"]).float().mean()))
+    print(f"[bf16] {H_SMALL}x{W_SMALL} card bf16 against CPU bf16 (relative L2), beside "
+          f"CPU bf16 against CPU f32: " + ", ".join(
+              f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in gaps.items())
+          + f"; bg class maps differ off top-2 gaps < {BF16_MARGIN} on {map_differ} "
+          f"pixels; step ids equal {ids_equal}, panoptic maps differ on "
+          f"{pan_mis[0]:.3e} / {pan_mis[1]:.3e} of pixels")
+    if (any(a > b for a, b in gaps.values()) or map_differ or not ids_equal
+            or pan_mis[0] > pan_mis[1]):
+        raise SystemExit("the bf16 port on the card and on the CPU disagree")
+    times = {"k2_bf16": time_ms(lambda: onehot_stem_conv(
+        seg, dep, kern, bias, num_classes=11, out_dtype=torch.bfloat16)),
+        "k2_bf16_plain": time_ms(lambda: onehot_stem_conv_plain(
+            seg, dep, kern, bias, num_classes=11).to(torch.bfloat16))}
+    x_onehot = torch.cat([assemble_onehot(seg, 11), dep], 1)
+    w_oihw = kern.permute(3, 2, 0, 1).contiguous()
+    times["k2_bf16_lib"] = time_ms(lambda: F.conv2d(
+        x_onehot, w_oihw, bias, stride=2, padding=1).to(torch.bfloat16))
+    times["k2_bf16_device"] = device_ms(lambda: onehot_stem_conv(
+        seg, dep, kern, bias, num_classes=11, out_dtype=torch.bfloat16), per_call=1)
+    times["k2_f32_device"] = device_ms(lambda: onehot_stem_conv(
+        seg, dep, kern, bias, num_classes=11), per_call=1)
+    print("[bf16] K2 ms " + json.dumps({k: round(v, 4) for k, v in times.items()})
+          + f" | {card}")
+    nbytes = (seg.numel() * 4 + dep.numel() * 4 + kern.numel() * 4 + bias.numel() * 4
+              + k16.numel() * 2)
+    bound, by = bound_ms(nbytes, k2_flops(seg, 11))
+    entry = {"name": "onehot_stem_conv_bf16", "route": "cuda",
+             "source": "panoptic_forecasting_tpu_torch/csrc/stem.cu",
+             "replaces": "panoptic_forecasting_tpu/kernels/stem.py:180",
+             "launches": launches["onehot_stem_conv_bf16"], "max_abs_err": err,
+             "ms": times["k2_bf16"], "plain_ms": times["k2_bf16_plain"],
+             "bound_ms": bound, "bound_by": by, "library_ms": times["k2_bf16_lib"],
+             "device_ms": times["k2_bf16_device"],
+             "f32_entry_device_ms": times["k2_f32_device"],
+             "note": "K2's bf16 epilogue (the network runs in bf16): equal, bit for "
+                     "bit, to the f32 entry's output rounded to bf16; max_abs_err "
+                     "against the plain version rounded to bf16 (f32 sums in another "
+                     "order, then a rounding); launches in phase 18's bf16 step"}
+    readings = {"launches": launches, "bg_share": bg_share, "panoptic_share": pan_share,
+                "timing": timing, "small_gaps": gaps, "small_map_differ": map_differ,
+                "small_panoptic_mismatch": pan_mis}
+    return entry, readings
+
+
+def narrow_fg_grads(root, dev, tag, runs):
+    """One fg loss and backward from the same seeded weights and batch at
+    narrow widths for each of ``runs`` ({name: (device, sets)}): {name:
+    (loss, {parameter: gradient})} on the CPU."""
+    fg = os.path.join(root, f"fg_{tag}")
+    store = synthetic.write_fg_fixture(fg, n_scenes=3, max_instances=3, seed=SEED,
+                                       feat_channels=32, feat_hw=7)
+    out = {}
+    for name, (d, sets) in runs.items():
+        argv = train_argv("fg", os.path.join(root, f"{tag}_{name}"), fg,
+                          ("platform", d.type), *NARROW_FG, *sets)
+        with store_readers(store):
+            cfg, data, model = setup(load_config(argv))
+            batch = next(iter(data.loader("train", cfg, seed=SEED)))
+        init_weights(model, SEED)
+        model.train()
+        loss, _ = model.loss(to_device(batch, d))
+        loss.backward()
+        out[name] = (float(loss.detach()), {n: p.grad.detach().cpu() for n, p in
+                                            model.named_parameters() if p.grad is not None})
+    return out
+
+
+def bf16_train_phase(dev, root, card, refs, f32_steps):
+    """(c) fg_train.yaml and bg_train.yaml with model.compute_dtype
+    bfloat16: fixed-batch steps on the card beside phases 15-16's f32
+    steps; one narrow fg step on the card against the CPU's bf16 step."""
+    fg_argv = train_argv("fg", os.path.join(root, "fg_bf16"), refs["fg_dir"],
+                         ("training.steps_per_epoch", 10), BF16_SET)
+    bg_argv = bg_train_argv(os.path.join(root, "bg_bf16"), refs["bg_data"],
+                            ("training.steps_per_epoch", BG_STEPS), BF16_SET)
+    # bg's operations are phase 16's (the same graph): not counted again
+    steps = {"fg": train_steps(fg_argv, refs["fg_store"], dev, steps=BF16_STEPS),
+             "bg": train_steps(bg_argv, refs["bg_store"], dev, steps=BF16_STEPS)}
+    for kind, r in steps.items():
+        f = f32_steps[kind]
+        print(f"[bf16] {kind} train step, batch {r['batch']}, bf16: median "
+              f"{r['ms_median']:.2f} ms (f32 {f['ms_median']:.2f}), {r['samples_per_s']:.1f} "
+              f"samples/s (f32 {f['samples_per_s']:.1f}), peak {r['peak_gib']:.2f} GiB "
+              f"(f32 {f['peak_gib']:.2f}), device busy {r['busy_ms']:.2f} ms (f32 "
+              f"{f['busy_ms']:.2f}), loss {r['loss_first']:.5f} -> {r['loss_last']:.5f} "
+              f"over {BF16_STEPS} steps on one batch | {card}")
+        if not r["losses_finite"] or not r["loss_last"] < r["loss_first"]:
+            raise SystemExit(f"bf16 {kind} training: losses not finite and falling")
+    cpu = torch.device("cpu")
+    g = narrow_fg_grads(root, dev, "narrow_bf16", {
+        "cuda16": (dev, (BF16_SET,)), "cpu16": (cpu, (BF16_SET,)), "cpu32": (cpu, ())})
+    (lg, gg), (lc, gc), (l32, g32) = g["cuda16"], g["cpu16"], g["cpu32"]
+    weights = [n for n in gc if not n.endswith("bias")]
+    gg, gc, g32 = ({n: g[n] for n in weights} for g in (gg, gc, g32))
+    loss_gap = (abs(lg - lc), abs(lc - l32))
+    grad_gap = (rel_l2(gg, gc), rel_l2(gc, g32))
+    print(f"[bf16] one narrow fg step, card bf16 against CPU bf16 beside CPU bf16 "
+          f"against CPU f32: loss {loss_gap[0]:.3e} / {loss_gap[1]:.3e}, weight "
+          f"gradients (relative L2) {grad_gap[0]:.3e} / {grad_gap[1]:.3e}")
+    if loss_gap[0] > loss_gap[1] or grad_gap[0] > grad_gap[1]:
+        raise SystemExit("the bf16 fg step on the card and on the CPU disagree")
+    return {"steps": steps, "narrow_loss_gap": loss_gap, "narrow_grad_gap": grad_gap}
+
+
+def option_cli_cfg(cfg, root, name, width):
+    """phase 12's CLI config under option ``name``: the option's keys in
+    the fg config, seeded fg weights of that model in a reference-format
+    ``.pt`` (ulbr box statistics under ``use_bbox_ulbr``), and for a bg
+    option a seeded bg checkpoint of that bg config."""
+    fg_keys, top, bg_keys = OPTIONS[name]
+    out = copy.deepcopy(dict(cfg))
+    out["model"] = dict(out["model"], **fg_keys)
+    out.update(top)
+    stats = ulbr_stats(width) if top.get("use_bbox_ulbr") else fg_stats(width)
+    os.makedirs(root, exist_ok=True)
+    pt = os.path.join(root, f"fg_{name}.pt")
+    torch.save(seeded_init_(FGModel(out, stats=stats, device="cpu"),
+                            SEED + 1).state_dict(), pt)
+    out["load_torch_model"] = pt
+    if bg_keys:
+        bg = read_yaml(out["fused"]["bg_config"])
+        bg["model"].update(bg_keys)
+        bg_dir = os.path.join(root, f"bg_{name}")
+        ckpt.save_model(bg_dir, seeded_init_(build_model(
+            bg, build_dataset(bg, test=True).card, "cpu"), SEED), best=True)
+        out["fused"] = dict(out["fused"], bg_config=dump(
+            os.path.join(root, f"bg_{name}.yaml"), bg), bg_dir=bg_dir)
+    return out
+
+
+def options_phase(dev, root, fixtures, refs):
+    """(d) each model option through cli.forecast_fused on phase 12's
+    256x512 fixture on the card, counted (K1 and K2 once per frame; no K2
+    for raw ids), against the same on the CPU; one short cli.train of
+    fg_train.yaml with the LSTM and its narrow step against the CPU."""
+    small, store, _ = fixtures["small"]
+    readings = {}
+    for name in OPTIONS:
+        cfg = option_cli_cfg(small, os.path.join(root, "options"), name, W_SMALL)
+        reset_counts()
+        report = run_cli(cfg, store, "cuda", f"opt_{name}_cuda")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        cpu_report = run_cli(cfg, store, "cpu", f"opt_{name}_cpu")
+        got, want = cli_outputs(report)[0], cli_outputs(cpu_report)[0]
+        frames = report["frames"]
+        k2_want = 0 if name == "convert2onehot_false" else frames
+        worst = max(float((got[k] != want[k]).mean()) for k in want)
+        ids = all(set(np.unique(got[k])) == set(np.unique(want[k])) for k in want)
+        readings[name] = {"frames": frames, "launches": launches, "worst": worst,
+                          "ids_equal": ids, "thing_pixels": thing_pixels(got)}
+        print(f"[options] {name}: {frames} frames at {H_SMALL}x{W_SMALL}, launches "
+              f"{launches}; card against CPU: ids equal {ids}, worst panoptic "
+              f"mismatch {worst:.3e}, {thing_pixels(got)} pixels in instances")
+        if (launches["place_min_fold"] != frames or launches["place_min"]
+                or launches["onehot_stem_conv"] != k2_want):
+            raise SystemExit(f"option {name}: launches {launches}, not K1 per frame "
+                             f"and K2 {k2_want} times")
+        if not frames or not ids or not worst < 1e-3:
+            raise SystemExit(f"option {name}: the card and the CPU disagree")
+
+    argv = train_argv("fg", os.path.join(root, "fg_lstm"), refs["fg_dir"],
+                      ("training.steps_per_epoch", 4), ("training.num_epochs", 1),
+                      ("model.rnn_type", "lstm"))
+    result, launches, secs = train_cli_run(argv, refs["fg_store"])
+    model = result["model"]
+    frozen = all(not c.bias_ih_l0.any() for c in (model.traj_encoder, model.traj_decoder))
+    step_losses, rel, grad_rel, excess = one_step_gpu_cpu(
+        root, dev, ("model.rnn_type", "lstm"), tag="narrow_lstm")
+    print(f"[options] cli.train fg_train.yaml with the LSTM: {result['step']} steps in "
+          f"{secs:.1f} s, launches {launches}, bias_ih_l0 still 0: {frozen}; one narrow "
+          f"LSTM step, card against CPU: losses {step_losses['cuda']!r} / "
+          f"{step_losses['cpu']!r} ({rel:.3e}, limit 1e-4), gradients at most "
+          f"{grad_rel:.3e} of their tensor's largest entry apart, parameters "
+          f"{excess:.3e} over lr·|Δg|/eps + 4 ulp (limit 0)")
+    if result["step"] != 4 or not frozen or any(launches.values()):
+        raise SystemExit("the LSTM fg training run failed its checks")
+    if not rel < 1e-4 or excess > 0:
+        raise SystemExit("the LSTM fg step on the card and on the CPU disagree")
+    readings["lstm_train"] = {"steps": result["step"], "s": secs, "gpu_cpu_loss_rel": rel,
+                              "gpu_cpu_grad_rel": grad_rel, "gpu_cpu_param_excess": excess}
+    return readings
+
+
+def bf16_phase(dev, root, card, fixtures, refs, train_readings):
+    """Phase 18: bf16 and the model options (see the module doc)."""
+    ts0 = time.perf_counter()
+    entry, readings = bf16_step_phase(dev, card)
+    ts1 = time.perf_counter()
+    f32_steps = {"fg": train_readings["steps"]["fg"], "bg": train_readings["bg"]["step"]}
+    readings["train"] = bf16_train_phase(dev, root, card, refs, f32_steps)
+    ts2 = time.perf_counter()
+    readings["options"] = options_phase(dev, root, fixtures, refs)
+    ts3 = time.perf_counter()
+    readings["part_s"] = {"ab": ts1 - ts0, "c": ts2 - ts1, "d": ts3 - ts2}
+    readings["phase_s"] = ts3 - ts0
+    print(f"[bf16] phase 18 took {readings['phase_s']:.1f} s (a-b {ts1 - ts0:.1f}, "
+          f"c {ts2 - ts1:.1f}, d {ts3 - ts2:.1f})")
+    return entry, readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2953,6 +3342,8 @@ def main() -> int:
         train_readings = train_phase(dev, root, card, refs)
         train_readings["bg"] = bg_train_phase(dev, root, card, refs)
         train_readings["dp"] = dp_phase(dev, root, card, refs)
+        k2_bf16_entry, bf16_readings = bf16_phase(dev, root, card, fixtures, refs,
+                                                  train_readings)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
@@ -3000,6 +3391,7 @@ def main() -> int:
          "staged_launches": staged_readings["launches"]["bg_export"]["onehot_stem_conv"],
          "note": "earlier_ms: the previous kernel is no longer in the tree; "
                  "its time is in PERF.md"},
+        k2_bf16_entry,
     ]
     n3 = k3_group.numel()
     k3_bound, k3_by = bound_ms(4 * n3 * 2 + 4 * k3_groups, n3)
@@ -3041,7 +3433,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "cli": {
         k: cli_readings[k] for k in ("frames", "frames_per_s", "median_ms",
                                      "png_decode_ms", "thing_pixels")},
-        "score": score_readings, "staged": staged_readings, "train": train_readings}))
+        "score": score_readings, "staged": staged_readings, "train": train_readings,
+        "bf16": bf16_readings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

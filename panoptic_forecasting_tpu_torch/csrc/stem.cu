@@ -51,7 +51,13 @@
 //    staged windows cost that range: the 16-float weights alone would fit
 //    C <= 133.
 // scripts/prof_stem.py times the kernel beside builds with one part cut
-// (arithmetic, staging, stores, depth, class gathers). Everything is f32.
+// (arithmetic, staging, stores, depth, class gathers). The arithmetic is
+// f32. The output is f32 (onehot_stem_conv) or, for a network that runs
+// in bf16, the same f32 values rounded to nearest even and stored as
+// bf16 pairs (onehot_stem_conv_bf16): the JAX model casts the f32 stem to
+// bf16 as its next op, so the function is the same, and the largest
+// write halves (33.5 MB -> 16.8 MB at 1024x2048).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -159,10 +165,37 @@ __device__ __forceinline__ void store_chunk(int* sseg, float* sdep, int i,
   *reinterpret_cast<float2*>(sdep + e + kHalf) = make_float2(c.d.y, c.d.w);
 }
 
+// One pixel's 16 channels after the ReLU: four float4s (f32 output) or
+// eight bf16 pairs in two 16-byte stores (bf16 output).
+__device__ __forceinline__ void store_pixel(float* out, int64_t pix,
+                                            const float* acc) {
+  float4* dst = reinterpret_cast<float4*>(out + pix * kCout);
+#pragma unroll
+  for (int q = 0; q < kCout / 4; ++q) {
+    dst[q] = make_float4(fmaxf(acc[4 * q], 0.f), fmaxf(acc[4 * q + 1], 0.f),
+                         fmaxf(acc[4 * q + 2], 0.f),
+                         fmaxf(acc[4 * q + 3], 0.f));
+  }
+}
+
+__device__ __forceinline__ void store_pixel(__nv_bfloat16* out, int64_t pix,
+                                            const float* acc) {
+  __nv_bfloat162 h[kCout / 2];
+#pragma unroll
+  for (int q = 0; q < kCout / 2; ++q) {
+    h[q] = __floats2bfloat162_rn(fmaxf(acc[2 * q], 0.f),
+                                 fmaxf(acc[2 * q + 1], 0.f));
+  }
+  uint4* dst = reinterpret_cast<uint4*>(out + pix * kCout);
+  dst[0] = *reinterpret_cast<const uint4*>(&h[0]);
+  dst[1] = *reinterpret_cast<const uint4*>(&h[4]);
+}
+
+template <typename Out>
 __global__ void __launch_bounds__(kThreads, 4)
 stem_kernel(const int32_t* __restrict__ seg, const float* __restrict__ depth,
             const float* __restrict__ weight, const float* __restrict__ bias,
-            float* __restrict__ out, int B, int T, int H, int W, int C,
+            Out* __restrict__ out, int B, int T, int H, int W, int C,
             int use_depth) {
   extern __shared__ float4 smem4[];
   const int c_in = T * C + (use_depth ? T : 0);
@@ -289,29 +322,17 @@ stem_kernel(const int32_t* __restrict__ seg, const float* __restrict__ depth,
     for (int p = 0; p < kPix; ++p) {
       const int y = y0 + ly + p * kRowsPerPass;
       if (y >= H2) break;
-      float4* dst = reinterpret_cast<float4*>(
-          out + (((int64_t)b * H2 + y) * W2 + x) * kCout);
-#pragma unroll
-      for (int q = 0; q < kCout / 4; ++q) {
-        dst[q] = make_float4(fmaxf(acc[p][4 * q], 0.f),
-                             fmaxf(acc[p][4 * q + 1], 0.f),
-                             fmaxf(acc[p][4 * q + 2], 0.f),
-                             fmaxf(acc[p][4 * q + 3], 0.f));
-      }
+      store_pixel(out, ((int64_t)b * H2 + y) * W2 + x, acc[p]);
     }
   }
 }
 
 }  // namespace
 
-// out (B, H/2, W/2, 16) = relu(conv3x3_s2_p1(onehot(seg) ++ depth) + bias).
-// seg (B,T,H,W) int32; depth (B,T,H,W) f32 or null when use_depth == 0;
-// kernel (3,3,T*C[+T],16) f32 HWIO; bias (16,) f32. H and W even,
-// H*W < 2^31. Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int onehot_stem_conv(const void* seg, const void* depth,
-                                const void* kernel, const void* bias,
-                                void* out, int B, int T, int H, int W, int C,
-                                int c_out, int use_depth, void* stream) {
+template <typename Out>
+int launch_stem(const void* seg, const void* depth, const void* kernel,
+                const void* bias, void* out, int B, int T, int H, int W, int C,
+                int c_out, int use_depth, void* stream) {
   if (c_out != kCout || (H & 1) || (W & 1) || B <= 0 || T <= 0 || C <= 0 ||
       H <= 0 || W <= 0 || (int64_t)H * W >= ((int64_t)1 << 31)) {
     return (int)cudaErrorInvalidValue;
@@ -321,7 +342,8 @@ extern "C" int onehot_stem_conv(const void* seg, const void* depth,
                                        (size_t)T * kWinRows * 4 * kHalf);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        stem_kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   int dev = 0, sms = 0, per_sm = 0;
@@ -330,8 +352,8 @@ extern "C" int onehot_stem_conv(const void* seg, const void* depth,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stem_kernel,
-                                                        kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, stem_kernel<Out>, kThreads, smem);
   }
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -340,9 +362,33 @@ extern "C" int onehot_stem_conv(const void* seg, const void* depth,
   if (tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   const int64_t resident = (int64_t)sms * per_sm;
   const int64_t grid = tiles < resident ? tiles : resident;
-  stem_kernel<<<(int)grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  stem_kernel<Out><<<(int)grid, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(seg), static_cast<const float*>(depth),
       static_cast<const float*>(kernel), static_cast<const float*>(bias),
-      static_cast<float*>(out), B, T, H, W, C, use_depth);
+      static_cast<Out*>(out), B, T, H, W, C, use_depth);
   return (int)cudaGetLastError();
+}
+
+// out (B, H/2, W/2, 16) = relu(conv3x3_s2_p1(onehot(seg) ++ depth) + bias).
+// seg (B,T,H,W) int32; depth (B,T,H,W) f32 or null when use_depth == 0;
+// kernel (3,3,T*C[+T],16) f32 HWIO; bias (16,) f32. H and W even,
+// H*W < 2^31. Returns cudaGetLastError() after the launch (0 on success).
+// out is f32.
+extern "C" int onehot_stem_conv(const void* seg, const void* depth,
+                                const void* kernel, const void* bias,
+                                void* out, int B, int T, int H, int W, int C,
+                                int c_out, int use_depth, void* stream) {
+  return launch_stem<float>(seg, depth, kernel, bias, out, B, T, H, W, C,
+                            c_out, use_depth, stream);
+}
+
+// The same, with out bf16: each f32 value rounded to nearest even.
+extern "C" int onehot_stem_conv_bf16(const void* seg, const void* depth,
+                                     const void* kernel, const void* bias,
+                                     void* out, int B, int T, int H, int W,
+                                     int C, int c_out, int use_depth,
+                                     void* stream) {
+  return launch_stem<__nv_bfloat16>(seg, depth, kernel, bias, out, B, T, H,
+                                    W, C, c_out, use_depth, stream);
 }

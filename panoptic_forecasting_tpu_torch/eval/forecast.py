@@ -6,11 +6,14 @@ frame the step:
   1. reprojects each past frame's segmentation into the target camera
      with the packed z-buffer splat (K1 on the GPU);
   2. runs FCHarDNet-70 over the one-hot + depth stack and takes the
-     argmax (K2 computes the fused stem on the folded model);
+     argmax (K2 computes the fused stem on the folded model; a bf16
+     model's K2 writes bf16, and the argmax is taken on f32 logits);
   3. rolls the foreground GRU + ConvLSTM forward and runs the mask head;
   4. orders the instances far to near, assigns per-class visit-order ids
      ((class + 11)·1000 + rank), and pastes and composites them over the
-     background.
+     background. Boxes are converted cwh -> ulbr unless the fg model
+     forecasts ulbr boxes (``use_bbox_ulbr``); the instance depth is the
+     column after the box state (4 under ``only_loc_feats``, else 8).
 
 Reference capability: the chained scripts of
 ``scripts/fg/run_fg_eval_panoptic.sh`` (pc export -> bg export ->
@@ -131,8 +134,10 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
         traj = preds["unnormalized_trajectory"][:, -out_t:]
         oidx = flat_in["output_inds"].long()
         sel = traj[torch.arange(b * n, device=dev), oidx]
-        boxes = bbox_cwh_to_ulbr(sel[..., :4])
-        inst_depth = (sel[..., 8] if fg_model.use_depth_inp
+        boxes = sel[..., :4]
+        if not fg_model.use_bbox_ulbr:
+            boxes = bbox_cwh_to_ulbr(boxes)
+        inst_depth = (sel[..., fg_model.traj_dim] if fg_model.use_depth_inp
                       else sel.new_zeros(sel.shape[:1]))
         masks = torch.sigmoid(preds["masks"])
         mh = masks.shape[-1]

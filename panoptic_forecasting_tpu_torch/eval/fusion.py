@@ -54,15 +54,20 @@ def run_scene_forward(model, batch) -> Dict[str, torch.Tensor]:
 
 
 def _pred_boxes_depths(model, preds, output_inds, out_t):
-    """Per-instance box (ULBR) and depth at the requested output index of
-    the forecast steps (``traj[:, :, -out_t:]``: index 0 is the first
-    forecast step). (S, N, 4) and (S, N) f32 tensors."""
+    """Per-instance box (ULBR; converted from cwh unless the model
+    forecasts ulbr) and depth (the column after the box state) at the
+    requested output index of the forecast steps (``traj[:, :, -out_t:]``:
+    index 0 is the first forecast step). (S, N, 4) and (S, N) f32
+    tensors."""
     traj = preds["unnormalized_trajectory"][:, :, -out_t:]  # (S, N, out_t, D)
     s, n = traj.shape[:2]
     idx = torch.as_tensor(np.asarray(output_inds).reshape(s, n), device=traj.device)
     sel = torch.take_along_dim(traj, idx.long()[:, :, None, None], dim=2)[:, :, 0]
-    boxes = bbox_cwh_to_ulbr(sel[..., :4])
-    depths = sel[..., 8] if model.use_depth_inp else sel.new_zeros(sel.shape[:2])
+    boxes = sel[..., :4]
+    if not model.use_bbox_ulbr:
+        boxes = bbox_cwh_to_ulbr(boxes)
+    depths = (sel[..., model.traj_dim] if model.use_depth_inp
+              else sel.new_zeros(sel.shape[:2]))
     return boxes.to(torch.float32), depths.to(torch.float32)
 
 

@@ -5,9 +5,10 @@ Counterpart of ``panoptic_forecasting_tpu/kernels/stem.py::
 onehot_stem_conv``. For CUDA tensors ``onehot_stem_conv`` launches the
 hand-written kernel ``csrc/stem.cu`` (input tiles staged in shared
 memory, a gather of one padded weight row per tap, no one-hot tensor, no
-GEMM, f32 throughout); for CPU tensors it runs
-``onehot_stem_conv_plain``, ``F.one_hot`` + ``F.conv2d`` in plain
-PyTorch. Layouts are the JAX package's: seg/depth (B, T, H, W), kernel
+GEMM, f32 arithmetic; the output f32, or rounded to bf16 by the
+``onehot_stem_conv_bf16`` entry when ``out_dtype=torch.bfloat16``); for
+CPU tensors it runs ``onehot_stem_conv_plain``, ``F.one_hot`` +
+``F.conv2d`` in plain PyTorch, cast to ``out_dtype``. Layouts are the JAX package's: seg/depth (B, T, H, W), kernel
 HWIO (3, 3, C_in, c_out), output NHWC (B, H/2, W/2, c_out).
 """
 
@@ -23,10 +24,11 @@ from . import build
 
 _KERNEL_COUT = 16  # csrc/stem.cu computes 16 channels per thread
 _SMEM_LIMIT = 227 * 1024  # shared memory a CTA can opt into on the H100
-_SIGNATURES = {
-    "onehot_stem_conv": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p],
-}
+_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# The C entry point of each output dtype; both take the same arguments.
+_ENTRIES = {torch.float32: "onehot_stem_conv",
+            torch.bfloat16: "onehot_stem_conv_bf16"}
+_SIGNATURES = {name: _SIGNATURE for name in _ENTRIES.values()}
 
 
 def assemble_onehot(seg: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -87,19 +89,23 @@ def _check(seg, depth, kernel, bias, num_classes):
 
 def onehot_stem_conv(seg: torch.Tensor, depth: Optional[torch.Tensor],
                      kernel: torch.Tensor, bias: torch.Tensor, *,
-                     num_classes: int) -> torch.Tensor:
-    """relu(conv3x3_stride2_pad1(onehot(seg) ++ depth) + bias), NHWC.
+                     num_classes: int,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """relu(conv3x3_stride2_pad1(onehot(seg) ++ depth) + bias), NHWC, in
+    ``out_dtype`` (f32, or bf16: the f32 result rounded to nearest even).
 
     seg (B, T, H, W) int; depth (B, T, H, W) f32 already normalised and
     masked, or None; kernel (3, 3, T·C [+T], c_out); bias (c_out,).
     CUDA tensors run the CUDA kernel (int32 seg, f32 rest, c_out = 16;
     it raises on anything else) and count a launch; CPU tensors run
-    ``onehot_stem_conv_plain``.
+    ``onehot_stem_conv_plain`` and cast its result.
     """
     _check(seg, depth, kernel, bias, num_classes)
+    if out_dtype not in _ENTRIES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if seg.device.type == "cpu":
         return onehot_stem_conv_plain(seg, depth, kernel, bias,
-                                      num_classes=num_classes)
+                                      num_classes=num_classes).to(out_dtype)
     if seg.device.type != "cuda":
         raise ValueError(f"unsupported device {seg.device}")
     if seg.dtype != torch.int32:
@@ -124,17 +130,21 @@ def onehot_stem_conv(seg: torch.Tensor, depth: Optional[torch.Tensor],
     kernel = kernel.contiguous()
     bias = bias.contiguous()
     dep = depth.contiguous() if depth is not None else None
-    out = torch.empty((b, h // 2, w // 2, c_out), dtype=torch.float32,
+    out = torch.empty((b, h // 2, w // 2, c_out), dtype=out_dtype,
                       device=seg.device)
     build.launch(
-        build.load("stem", _SIGNATURES).onehot_stem_conv, seg.device,
+        getattr(build.load("stem", _SIGNATURES), _ENTRIES[out_dtype]), seg.device,
         seg.data_ptr(), dep.data_ptr() if dep is not None else None,
         kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
         b, t, h, w, int(num_classes), c_out, int(dep is not None),
     )
     onehot_stem_conv.launches += 1
+    if out_dtype == torch.bfloat16:
+        onehot_stem_conv.bf16_launches += 1
     return out
 
 
+# Launches of the kernel in either dtype; of the bf16 entry alone.
 onehot_stem_conv.launches = 0
+onehot_stem_conv.bf16_launches = 0
 

@@ -19,10 +19,17 @@ pretrain_path`` names a file that exists, the reference's FCHarDNet-70
 Cityscapes pickle (``load_pretrained``; JAX ``_load_pretrained``); a
 missing file is warned about and the seeded weights are kept.
 
-The JAX config keys ``packed_train``/``packed_stem``/``packed_levels``/
-``stem_kernel``/``compute_dtype`` select TPU layouts of the same graph
-or a bf16 opt-in and are accepted and ignored. Every shipped config
-one-hot encodes its inputs; ``convert2onehot: false`` is not ported.
+``model.compute_dtype: bfloat16`` (or ``bf16``) runs HarDNet in bf16
+with f32 parameters, at JAX's cast points (``models/hardnet.py``); the
+logits come back f32, so the loss and the argmax are f32. The folded
+route keeps JAX's TPU semantics: K2 computes the stem in f32 and writes
+it rounded to bf16 (``onehot_stem_conv(..., out_dtype=bf16)``), which
+is what JAX's next op, the cast to bf16, makes of its f32 output.
+``convert2onehot: false`` feeds the raw ids as one float channel per
+frame (JAX :136-147) and never takes K2. Every ``model.*`` key the JAX
+model reads is honoured; ``packed_train``/``packed_stem``/
+``packed_levels``/``stem_kernel`` select TPU layouts of the same graph
+and are accepted and ignored (the folded route always takes K2).
 """
 
 from __future__ import annotations
@@ -56,8 +63,9 @@ class BGModel(nn.Module):
         self.num_classes = int(d.get("num_classes", 19))
         self.use_depth_inps = bool(m.get("use_depth_inps"))
         self.num_inputs = int(m.get("num_inputs", 1))
-        if not m.get("convert2onehot"):
-            raise NotImplementedError("only convert2onehot: true is ported")
+        self.convert2onehot = bool(m.get("convert2onehot"))
+        self.compute_dtype = (torch.bfloat16 if m.get("compute_dtype")
+                              in ("bfloat16", "bf16") else torch.float32)
         self.min_depth = float(d.get("min_depth", 0.1))
         self.max_depth = float(d.get("max_depth", 200.0))
         fw, fh = m.get("final_w"), m.get("final_h")
@@ -68,11 +76,13 @@ class BGModel(nn.Module):
             warnings.warn(f"hardnet pretrain {self.pretrain_path} not found; "
                           "seeded init")
             self.pretrain_path = None
-        in_ch = self.num_inputs * (self.num_classes + int(self.use_depth_inps))
+        per_frame = self.num_classes if self.convert2onehot else 1
+        in_ch = self.num_inputs * (per_frame + int(self.use_depth_inps))
         mean, std = depth_stats if depth_stats is not None else (0.0, 1.0)
         self.register_buffer("depth_mean", torch.tensor([float(mean)]))
         self.register_buffer("depth_std", torch.tensor([float(std)]))
-        self.model = HarDNet(in_ch, n_classes=self.num_classes)
+        self.model = HarDNet(in_ch, n_classes=self.num_classes,
+                             dtype=self.compute_dtype)
         self.eval()
         self.to(resolve_device(device))
 
@@ -113,10 +123,15 @@ class BGModel(nn.Module):
         return dep
 
     def _assemble(self, seg, depth, dmask) -> torch.Tensor:
-        """-> (B, T·C [+T], H, W) network input, t-major channels."""
-        x = assemble_onehot(seg, self.num_classes)
+        """-> (B, T·C [+T], H, W) network input, t-major channels; without
+        ``convert2onehot`` (B, T [+T], H, W), the ids as floats."""
+        if self.convert2onehot:
+            x = assemble_onehot(seg, self.num_classes)
+        else:
+            x = seg.to(torch.float32)
         if self.use_depth_inps:
-            x = torch.cat([x, self._depth_channels(depth, dmask)], 1)
+            # in the ids' dtype, f32, as JAX (dep.astype(x.dtype))
+            x = torch.cat([x, self._depth_channels(depth, dmask).to(x.dtype)], 1)
         return x
 
     def stem_inputs(self, inputs: Dict[str, Any]):
@@ -161,14 +176,16 @@ class BGModel(nn.Module):
         seg, depth, dmask = self._prep_inputs(inputs)
         kw = dict(final_size=self.final_size, return_argmax=return_argmax)
         h, w = seg.shape[-2:]
-        if (self.folded and not self.training and h % 2 == 0 and w % 2 == 0
+        if (self.folded and not self.training and self.convert2onehot
+                and h % 2 == 0 and w % 2 == 0
                 and (depth is not None) == self.use_depth_inps):
-            # assembly + base.0 in one fused step
+            # assembly + base.0 in one fused step, written in the
+            # network's compute dtype
             dep = self._depth_channels(depth, dmask) if self.use_depth_inps else None
             conv = self.model.base[0].conv
             y0 = onehot_stem_conv(
                 seg, dep, conv.weight.permute(2, 3, 1, 0), conv.bias,
-                num_classes=self.num_classes,
+                num_classes=self.num_classes, out_dtype=self.compute_dtype,
             )
             return self.model(y0.permute(0, 3, 1, 2), skip_stem0=True, **kw)
         return self.model(self._assemble(seg, depth, dmask), **kw)

@@ -8,7 +8,10 @@ rows r | z | n). Pass numpy arrays (``np.asarray`` of each leaf).
 
 They are the exact inverse of the JAX package's
 ``models/reference_import.py::{odom,bg,fg}_from_reference``: converting
-back reproduces the JAX variables bit for bit. ``opt_state_from_jax``
+back reproduces the JAX variables bit for bit. The JAX package has no
+LSTM importer; ``lstm_cell_params`` is the inverse of the LSTM's bridge.
+The bridges are dtype-agnostic: the parameters are f32 whatever
+``compute_dtype`` the model runs in, in both packages. ``opt_state_from_jax``
 carries an optax Adam or SGD state the same way, so a JAX training run
 resumes in the port.
 """
@@ -112,6 +115,38 @@ def _gru(p: Tree, prefix: str, out):
         [np.zeros_like(hn_b), np.zeros_like(hn_b), hn_b]))
 
 
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def _lstm(p: Tree, prefix: str, out):
+    """Flax OptimizedLSTMCell {ii, if, ig, io (no bias), hi, hf, hg, ho}
+    -> nn.LSTM layer 0 (gate rows i | f | g | o): the bias goes to
+    ``bias_hh_l0`` and ``bias_ih_l0`` is 0 (``layers.LSTMCell``)."""
+    out[f"{prefix}.weight_ih_l0"] = _t(np.concatenate(
+        [np.asarray(p[f"i{g}"]["kernel"]).T for g in _LSTM_GATES]))
+    out[f"{prefix}.weight_hh_l0"] = _t(np.concatenate(
+        [np.asarray(p[f"h{g}"]["kernel"]).T for g in _LSTM_GATES]))
+    b = np.concatenate([np.asarray(p[f"h{g}"]["bias"]) for g in _LSTM_GATES])
+    out[f"{prefix}.bias_hh_l0"] = _t(b)
+    out[f"{prefix}.bias_ih_l0"] = _t(np.zeros_like(b))
+
+
+def lstm_cell_params(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    """An ``nn.LSTM`` layer 0 of ``sd`` -> flax OptimizedLSTMCell params
+    (numpy): the inverse of ``_lstm``. The two biases add up into the
+    hidden-side one, as torch adds them."""
+    w_ih = np.asarray(sd[f"{prefix}.weight_ih_l0"])
+    w_hh = np.asarray(sd[f"{prefix}.weight_hh_l0"])
+    b = np.asarray(sd[f"{prefix}.bias_hh_l0"]) + np.asarray(sd[f"{prefix}.bias_ih_l0"])
+    h = w_hh.shape[1]
+    out: Dict[str, Any] = {}
+    for k, g in enumerate(_LSTM_GATES):
+        rows = slice(k * h, (k + 1) * h)
+        out[f"i{g}"] = {"kernel": w_ih[rows].T}
+        out[f"h{g}"] = {"kernel": w_hh[rows].T, "bias": b[rows]}
+    return out
+
+
 def _mlp(p: Tree, prefix: str, out):
     """MLP {dense_i} -> Sequential with the Linears at even indices."""
     for i in range(len(p)):
@@ -152,22 +187,29 @@ def fg_state_dict_from_jax(params: Tree,
                            stats: Optional[Mapping[str, Tuple[Sequence[float], Sequence[float]]]] = None
                            ) -> Dict[str, torch.Tensor]:
     """FGCore params (+ {"traj"|"depth"|"odom": (mean, std)}) -> ``FGModel``
-    state_dict. The instance-feature dense is reordered from the JAX
-    (h, w, c) flattening to the reference's c-major one."""
+    state_dict, for a GRU or LSTM (``rnn_type``) trajectory RNN. The
+    instance-feature dense is reordered from the JAX (h, w, c) flattening
+    to the reference's c-major one. Submodules an ablation leaves unused
+    (``traj_feat_out``; ``instance_compressor`` and
+    ``instance_feat_model``) have no parameters in JAX and no entries
+    here."""
     out: Dict[str, torch.Tensor] = {}
     for side in ("traj_encoder", "traj_decoder"):
-        _gru(params[side], side, out)
+        (_lstm if "ii" in params[side] else _gru)(params[side], side, out)
     for side in ("traj_encoder_out", "traj_decoder_out"):
         _traj_head(params[side], side, out)
-    _dense(params["traj_feat_out"], "traj_feat_out", out)
-    for name in ("instance_compressor", "mask_encoder_out", "mask_decoder_out"):
+    if "traj_feat_out" in params:
+        _dense(params["traj_feat_out"], "traj_feat_out", out)
+    for name in ("mask_encoder_out", "mask_decoder_out"):
         _conv_params(params[name], name, out)
-    c = np.asarray(params["instance_compressor"]["kernel"]).shape[-1]
-    k = np.asarray(params["instance_feat_model"]["kernel"])
-    hw = math.isqrt(k.shape[0] // c)
-    k = k.reshape(hw, hw, c, -1).transpose(2, 0, 1, 3).reshape(c * hw * hw, -1)
-    _dense(dict(params["instance_feat_model"], kernel=k),
-           "instance_feat_model", out)
+    if "instance_compressor" in params:
+        _conv_params(params["instance_compressor"], "instance_compressor", out)
+        c = np.asarray(params["instance_compressor"]["kernel"]).shape[-1]
+        k = np.asarray(params["instance_feat_model"]["kernel"])
+        hw = math.isqrt(k.shape[0] // c)
+        k = k.reshape(hw, hw, c, -1).transpose(2, 0, 1, 3).reshape(c * hw * hw, -1)
+        _dense(dict(params["instance_feat_model"], kernel=k),
+               "instance_feat_model", out)
     for side in ("mask_encoder", "mask_decoder"):
         for cell, p in params[side].items():
             i = int(cell.split("_")[-1])

@@ -22,10 +22,17 @@ maskrcnn_pretrain_path`` names detectron2 mask-head weights, loaded by
 ``load_pretrained`` (JAX: ``init``); a missing file is warned about and
 the seeded weights stay.
 
-Only the model options the shipped configs use are ported (GRU, f32,
-instance and trajectory features both on); ``only_loc_feats``,
-``no_traj_inst_feats``, ``no_mask_traj_feats``, ``only_input_odometry``,
-``use_bbox_ulbr``, an LSTM or bf16 raise ``NotImplementedError``.
+Every model option of the JAX model is honoured and none is refused:
+``rnn_type`` ``gru`` or ``lstm`` (flax's ``OptimizedLSTMCell``, carry
+``(c, h)``; ``layers.LSTMCell``); ``compute_dtype: bfloat16`` runs the
+ConvLSTM branch in bf16 (``convlstm.py``) while the trajectory RNNs,
+heads and ``mask_{en,de}coder_out`` stay f32 (JAX :99-101); the
+ablations ``only_loc_feats`` (4-d boxes, 1-d depth, no velocity mask),
+``no_traj_inst_feats`` and ``no_mask_traj_feats`` (the submodules they
+drop are not built, as flax creates no parameters for them) and
+``only_input_odometry`` (odometry on the encoder only); and
+``use_bbox_ulbr`` (boxes are ulbr; the metrics convert them to cwh).
+An unknown ``rnn_type`` or ``loss_type`` raises ``ValueError`` as in JAX.
 
 Submodule and buffer names follow the reference ``state_dict``
 (``traj_encoder.weight_ih_l0``, ``mask_encoder.cell_list.{i}.conv``,
@@ -46,20 +53,25 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..geometry.boxes import bbox_ulbr_to_cwh
 from .base import LOSS_FNS
 from .convlstm import ConvLSTMStack
-from .layers import MLP, GRUCell
+from .layers import MLP, GRUCell, LSTMCell
 from .mask_head import MaskRCNNConvUpsampleHead
 
 ODOM_DIM = 5
 Stats = Mapping[str, Tuple[Sequence[float], Sequence[float]]]
 
 
-def expand_traj_mask(mask, vel_mask=None, result_size: int = 4) -> torch.Tensor:
-    """(B, T) validity -> (B, T, 2·result_size) loc + velocity mask;
-    velocity needs both adjacent frames valid and is invalid at t = 0."""
+def expand_traj_mask(mask, vel_mask=None, result_size: int = 4,
+                     no_vel: bool = False) -> torch.Tensor:
+    """(B, T) validity -> (B, T, 2·result_size) loc + velocity mask
+    (``no_vel``: the loc mask alone); velocity needs both adjacent frames
+    valid and is invalid at t = 0."""
     mask = mask.to(torch.float32)
     loc = mask[..., None].expand(mask.shape + (result_size,))
+    if no_vel:
+        return loc
     if vel_mask is None:
         vel_mask = torch.cat(
             [torch.zeros_like(mask[:, :1]), mask[:, 1:] * mask[:, :-1]], 1
@@ -87,17 +99,17 @@ class FGModel(nn.Module):
         super().__init__()
         m = cfg.get("model", {})
         mh = m.get("mask_head", {}) or {}
-        unported = [k for k in ("only_loc_feats", "no_traj_inst_feats",
-                                "no_mask_traj_feats", "only_input_odometry")
-                    if m.get(k)]
-        if cfg.get("use_bbox_ulbr"):
-            unported.append("use_bbox_ulbr")
-        if m.get("rnn_type", "gru") != "gru":
-            unported.append(f"rnn_type {m['rnn_type']}")
-        if m.get("compute_dtype") in ("bfloat16", "bf16"):
-            unported.append("compute_dtype bf16")
-        if unported:
-            raise NotImplementedError(f"fg options not ported: {unported}")
+        self.rnn_type = m.get("rnn_type", "gru")
+        cells = {"gru": GRUCell, "lstm": LSTMCell}
+        if self.rnn_type not in cells:
+            raise ValueError(f"rnn_type not recognized: {self.rnn_type}")
+        self.compute_dtype = (torch.bfloat16 if m.get("compute_dtype")
+                              in ("bfloat16", "bf16") else torch.float32)
+        self.use_bbox_ulbr = bool(cfg.get("use_bbox_ulbr"))
+        self.only_loc_feats = bool(m.get("only_loc_feats"))
+        self.only_input_odometry = bool(m.get("only_input_odometry"))
+        self.use_traj_inst_feats = not m.get("no_traj_inst_feats", False)
+        self.use_mask_traj_feats = not m.get("no_mask_traj_feats", False)
         self.traj_coef = float(m.get("traj_coef", 1.0))
         self.mask_distill_coef = float(m.get("mask_distill_coef", 1.0))
         loss_type = m.get("loss_type", "smoothl1")
@@ -114,8 +126,10 @@ class FGModel(nn.Module):
         self.use_odometry = bool(m.get("use_odometry"))
         self.use_depth_inp = bool(m.get("use_depth_inp"))
         self.use_depth_sorting = bool(m.get("use_depth_sorting"))
-        self.depth_dim = 2 if self.use_depth_inp else 0
-        out_size = 8 + self.depth_dim
+        self.traj_dim = 4 if self.only_loc_feats else 8
+        self.depth_dim = ((1 if self.only_loc_feats else 2)
+                          if self.use_depth_inp else 0)
+        out_size = self.traj_dim + self.depth_dim
         rnn_hidden = int(m.get("rnn_hidden", 128))
         inst_ch = int(m.get("instance_feat_channels", 8))
         inst_hidden = int(m.get("instance_feat_hidden", 64))
@@ -127,18 +141,27 @@ class FGModel(nn.Module):
         conv_dim = int(mh.get("conv_dim", c))
 
         odom = ODOM_DIM if self.use_odometry else 0
-        self.traj_encoder = GRUCell(out_size + inst_hidden + 1 + odom, rnn_hidden)
-        self.traj_decoder = GRUCell(out_size + inst_hidden + odom, rnn_hidden)
+        dec_odom = 0 if self.only_input_odometry else odom
+        inst = inst_hidden if self.use_traj_inst_feats else 0
+        cell = cells[self.rnn_type]
+        self.traj_encoder = cell(out_size + inst + 1 + odom, rnn_hidden)
+        self.traj_decoder = cell(out_size + inst + dec_odom, rnn_hidden)
         self.traj_encoder_out = _traj_out_head(rnn_hidden, rnn_hidden,
                                                out_size, n_out)
         self.traj_decoder_out = _traj_out_head(rnn_hidden, rnn_hidden,
                                                out_size, n_out)
-        self.traj_feat_out = nn.Linear(rnn_hidden, tf_ch)
-        self.instance_compressor = nn.Conv2d(c, inst_ch, 1)
-        self.instance_feat_model = nn.Linear(inst_ch * hw * hw, inst_hidden)
-        mask_in = c + tf_ch
-        self.mask_encoder = ConvLSTMStack(mask_in, c, n_lstm)
-        self.mask_decoder = ConvLSTMStack(mask_in, c, n_lstm)
+        # flax builds no parameters for a submodule an ablation leaves
+        # unused; neither does the port.
+        self.traj_feat_out = (nn.Linear(rnn_hidden, tf_ch)
+                              if self.use_mask_traj_feats else None)
+        self.instance_compressor = self.instance_feat_model = None
+        if self.use_traj_inst_feats:
+            self.instance_compressor = nn.Conv2d(c, inst_ch, 1)
+            self.instance_feat_model = nn.Linear(inst_ch * hw * hw, inst_hidden)
+        mask_in = c + (tf_ch if self.use_mask_traj_feats else 0)
+        dt = self.compute_dtype
+        self.mask_encoder = ConvLSTMStack(mask_in, c, n_lstm, dtype=dt)
+        self.mask_decoder = ConvLSTMStack(mask_in, c, n_lstm, dtype=dt)
         self.mask_encoder_out = nn.Conv2d(c, c, 1)
         self.mask_decoder_out = nn.Conv2d(c, c, 1)
         self.mask_head = MaskRCNNConvUpsampleHead(c, conv_dim)
@@ -164,10 +187,10 @@ class FGModel(nn.Module):
 
     # -- normalisation -----------------------------------------------------
     def _full_stats(self):
-        mean, std = self.traj_mean, self.traj_std
+        mean, std = self.traj_mean[:self.traj_dim], self.traj_std[:self.traj_dim]
         if self.use_depth_inp:
-            mean = torch.cat([mean, self.depth_mean])
-            std = torch.cat([std, self.depth_std])
+            mean = torch.cat([mean, self.depth_mean[:self.depth_dim]])
+            std = torch.cat([std, self.depth_std[:self.depth_dim]])
         return mean, torch.where(std == 0, torch.ones_like(std), std)
 
     def _norm_traj(self, trajs, depths):
@@ -188,7 +211,10 @@ class FGModel(nn.Module):
         return x.reshape(lead + (-1,)) * mask
 
     def _with_traj_feat(self, hidden, feats):
-        """concat([broadcast traj_feat_out(hidden), feats]) on channels."""
+        """concat([broadcast traj_feat_out(hidden), feats]) on channels, or
+        feats alone under ``no_mask_traj_feats``."""
+        if not self.use_mask_traj_feats:
+            return feats
         tf = self.traj_feat_out(hidden)
         hw = self.mask_feat_hw
         tf = tf[..., None, None].expand(tf.shape + (hw, hw))
@@ -199,10 +225,10 @@ class FGModel(nn.Module):
         (B, out_t, 5) or None -> (traj_preds (B, out_t+1, out_size),
         feat_preds (B, out_t+1, C, hw, hw))."""
         b, t_in = enc_traj_inp.shape[:2]
-        h = enc_traj_inp.new_zeros((b, self.traj_encoder.hidden))
+        carry = self._rnn_init(enc_traj_inp[:, 0])
         enc_outs = []
         for t in range(t_in):
-            h = self.traj_encoder(h, enc_traj_inp[:, t])
+            carry, h = self._rnn_step(self.traj_encoder, carry, enc_traj_inp[:, t])
             enc_outs.append(h)
         enc_mask_inp = self._with_traj_feat(torch.stack(enc_outs, 1), feats)
         hw = self.mask_feat_hw
@@ -216,10 +242,12 @@ class FGModel(nn.Module):
         trajs, feat_steps = [cur_traj], [cur_feats]
         ones = cur_traj.new_ones((b, 1))
         for t in range(out_t):
-            inp = [cur_traj, self.compress_inst_feats(cur_feats, ones)]
+            inp = [cur_traj]
+            if self.use_traj_inst_feats:
+                inp.append(self.compress_inst_feats(cur_feats, ones))
             if odom_out is not None:
                 inp.append(odom_out[:, t])
-            h = self.traj_decoder(h, torch.cat(inp, -1))
+            carry, h = self._rnn_step(self.traj_decoder, carry, torch.cat(inp, -1))
             cur_traj = cur_traj + self.traj_decoder_out(h)
             states, h_last = self.mask_decoder(
                 states, self._with_traj_feat(h, cur_feats)
@@ -228,6 +256,18 @@ class FGModel(nn.Module):
             trajs.append(cur_traj)
             feat_steps.append(cur_feats)
         return torch.stack(trajs, 1), torch.stack(feat_steps, 1)
+
+    def _rnn_init(self, like):
+        """The zero carry: h, or (c, h) for the LSTM (JAX ``_rnn_init``)."""
+        z = like.new_zeros(like.shape[:1] + (self.traj_encoder.hidden,))
+        return z if self.rnn_type == "gru" else (z, z)
+
+    def _rnn_step(self, cell, carry, x):
+        """-> (carry, output) of one trajectory RNN step."""
+        if self.rnn_type == "gru":
+            h = cell(carry, x)
+            return h, h
+        return cell(carry, x)
 
     def _tensor(self, batch, name) -> torch.Tensor:
         """A float input in the model's dtype (f32; float64 after
@@ -249,7 +289,7 @@ class FGModel(nn.Module):
         feats (N, out_t+1, C, hw, hw); with ``heads`` the mask head at
         ``output_inds`` too."""
         dev = self.traj_mean.device
-        trajs = self._tensor(inputs, "trajectories")[..., :8]
+        trajs = self._tensor(inputs, "trajectories")[..., :self.traj_dim]
         feats = self._feats(inputs, "feats")
         inp_t = trajs.shape[1]
         bbox_masks = self._tensor(inputs, "bbox_masks")[:, :inp_t]
@@ -257,15 +297,19 @@ class FGModel(nn.Module):
         depths = (self._tensor(inputs, "depths")[..., : self.depth_dim]
                   if self.use_depth_inp else None)
         normalized = self._norm_traj(trajs, depths)
-        emask = expand_traj_mask(bbox_masks, vel_mask=vel_masks)
+        no_vel = self.only_loc_feats
+        emask = expand_traj_mask(bbox_masks, vel_mask=vel_masks, no_vel=no_vel)
         if self.use_depth_inp:
             dmask = self._tensor(inputs, "depth_masks")
             dmask = dmask.reshape(dmask.shape[0], dmask.shape[1])
-            emask = torch.cat([emask, expand_traj_mask(dmask, result_size=1)], -1)
+            emask = torch.cat([emask, expand_traj_mask(
+                dmask, result_size=1, no_vel=no_vel)], -1)
         normalized = normalized * emask
 
-        enc = [normalized, self.compress_inst_feats(feats, bbox_masks[..., None]),
-               bbox_masks[..., None]]
+        enc = [normalized]
+        if self.use_traj_inst_feats:
+            enc.append(self.compress_inst_feats(feats, bbox_masks[..., None]))
+        enc.append(bbox_masks[..., None])
         odom_out = None
         if self.use_odometry:
             odom = self._tensor(inputs, "odometry")
@@ -273,7 +317,8 @@ class FGModel(nn.Module):
                 self.odom_std == 0, torch.ones_like(self.odom_std),
                 self.odom_std)
             enc.append(odom[:, :inp_t])
-            odom_out = odom[:, inp_t: inp_t + out_t]
+            if not self.only_input_odometry:
+                odom_out = odom[:, inp_t: inp_t + out_t]
         traj_preds, feat_preds = self._rollout(
             torch.cat(enc, -1), feats, odom_out, int(out_t)
         )
@@ -328,11 +373,13 @@ class FGModel(nn.Module):
     def _traj_loss(self, inputs, labels, upreds, out_t):
         bbox_masks = self._tensor(inputs, "bbox_masks")
         vel_masks = self._tensor(inputs, "bbox_vel_masks")
-        inp_tr = self._tensor(inputs, "trajectories")[..., :8]
-        lab_tr = self._tensor(labels, "trajectories")[..., :8]
+        inp_tr = self._tensor(inputs, "trajectories")[..., :self.traj_dim]
+        lab_tr = self._tensor(labels, "trajectories")[..., :self.traj_dim]
         b = upreds.shape[0]
 
         tmask = expand_traj_mask(bbox_masks, vel_mask=vel_masks)[:, -(out_t + 1):]
+        if self.only_loc_feats:
+            tmask = tmask[..., :4]
         gt = torch.cat([inp_tr[:, -1:], lab_tr], 1)
         if self.use_depth_inp:
             dd = self.depth_dim
@@ -354,6 +401,8 @@ class FGModel(nn.Module):
         bm = bbox_masks[:, -(out_t + 1):]
         bm_n = bm.sum(-1) + 1e-8
         pred_cwh, gt_cwh = upreds[..., :4], gt[..., :4]
+        if self.use_bbox_ulbr:
+            pred_cwh, gt_cwh = bbox_ulbr_to_cwh(pred_cwh), bbox_ulbr_to_cwh(gt_cwh)
         center_l2 = torch.linalg.vector_norm(pred_cwh[..., :2] - gt_cwh[..., :2], dim=-1)
         fde = torch.linalg.vector_norm(pred_cwh[:, -1, :2] - gt_cwh[:, -1, :2], dim=-1)
         size_l1 = (pred_cwh[..., 2:4] - gt_cwh[..., 2:4]).abs() * bm[..., None]
@@ -364,7 +413,9 @@ class FGModel(nn.Module):
             "size_pixel_l1": size_l1.reshape(b, -1).sum(-1) / bm_n,
         }
         if self.use_depth_inp:
-            depth_l2 = torch.linalg.vector_norm(upreds[..., 8:9] - gt_d[..., :1], dim=-1)
+            dcol = self.traj_dim
+            depth_l2 = torch.linalg.vector_norm(
+                upreds[..., dcol:dcol + 1] - gt_d[..., :1], dim=-1)
             dmm = gt_dm[..., 0]
             n = dmm.sum(-1)
             out["depth_l2"] = (depth_l2 * dmm).sum(-1) / torch.where(

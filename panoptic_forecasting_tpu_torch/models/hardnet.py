@@ -17,6 +17,19 @@ exact re-indexings of this graph and are not ported.
 ``folded=True`` is the inference graph: every ConvLayer is a conv with
 bias and no BatchNorm (``fold_batchnorm_``). The unfolded graph trains:
 its BatchNorm (``BatchNorm2d``) keeps flax's statistics.
+
+``dtype=torch.bfloat16`` is the JAX package's ``dtype=jnp.bfloat16``
+(JAX hardnet.py:415-530, 655-700, 770-800), with explicit casts at JAX's
+points, rounding where XLA rounds them: the parameters stay f32; each
+conv casts its input and weight to bf16; a folded conv rounds its
+result to bf16 and adds the bias, cast to bf16, in bf16; an unfolded
+one hands its f32 accumulator to BatchNorm, which computes its
+statistics and the normalisation in f32 and returns bf16 (flax's
+``nn.BatchNorm(dtype=bf16)``, whose first op promotes the conv's output
+to f32); the average pool adds its four bf16 terms one by one (XLA's
+bf16 ``reduce_window``); the decoder's interpolation matrix is rounded
+to bf16; the logits go back to f32 before the final resize and the
+argmax.
 """
 
 from __future__ import annotations
@@ -95,6 +108,21 @@ def resize_bilinear_hw(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return x
 
 
+class AvgPool2(nn.Module):
+    """The reference's ``nn.AvgPool2d(2, 2)`` slot of ``base``. In bf16 the
+    four taps are added one at a time in bf16 and the sum divided by 4,
+    as flax's ``nn.avg_pool`` reduces a bf16 window."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16:
+            return F.avg_pool2d(x, 2, 2)
+        h, w = x.shape[-2] // 2 * 2, x.shape[-1] // 2 * 2
+        s = x[..., 0:h:2, 0:w:2] + x[..., 0:h:2, 1:w:2]
+        s = s + x[..., 1:h:2, 0:w:2]
+        s = s + x[..., 1:h:2, 1:w:2]
+        return s / 4
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's semantics (JAX ``ConvLayer``'s
     ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``), under
@@ -118,15 +146,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     whose backward all-reduces the gradient), then ``mean = Σx/n`` and
     ``var = max(0, Σx²/n − mean²)``; the running statistics move with
     them, equal on every rank. Otherwise no collective runs.
+
+    In a bf16 network (``HarDNet(dtype=torch.bfloat16)``) the f32 conv
+    accumulator comes in and ``out_dtype=torch.bfloat16`` goes out, as
+    flax's ``nn.BatchNorm(dtype=bf16)`` computes: the statistics, their
+    all-reduce and the normalisation in f32, the result cast to bf16.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5)
 
-    def forward(self, x):
+    def forward(self, x, out_dtype: Optional[torch.dtype] = None):
+        """``out_dtype`` (bf16) casts the normalised f32 result."""
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+            if out_dtype is None:
+                return F.batch_norm(x, self.running_mean, self.running_var,
+                                    self.weight, self.bias, False, 0.0, self.eps)
+            return self._normalize(x, self.running_mean,
+                                   self.running_var).to(out_dtype)
         dims = (0, 2, 3)
         if batch_is_sharded():
             c = x.shape[1]
@@ -141,14 +178,74 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
             self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
             self.num_batches_tracked.add_(1)
+        y = self._normalize(x, mean, var)
+        return y if out_dtype is None else y.to(out_dtype)
+
+    def _normalize(self, x, mean, var):
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
+class _ConvBF16(torch.autograd.Function):
+    """JAX's bf16 conv as XLA computes it: the input and the f32 weight
+    rounded to bf16, the conv's result rounded to bf16, the bias cast to
+    bf16 and added in bf16. The gradients of the f32 weight and bias are
+    f32: XLA keeps the f32 accumulators of the transposed conv and of the
+    bias sum where the cast to the f32 parameter follows them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding):
+        xb, wb = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+        y = F.conv2d(xb, wb, None, stride, padding)
+        if bias is not None:
+            y = y + bias.to(torch.bfloat16)[:, None, None]
+        ctx.save_for_backward(xb, wb)
+        ctx.conf = (stride, padding, x.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xb, wb = ctx.saved_tensors
+        stride, padding, x_dtype = ctx.conf
+        d = dy.to(torch.float32)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(xb.shape, wb.to(torch.float32), d,
+                                            stride, padding).to(x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(xb.to(torch.float32), wb.shape, d,
+                                             stride, padding)
+        if ctx.needs_input_grad[2]:
+            db = d.sum((0, 2, 3))
+        return dx, dw, db, None, None
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``; for a bf16 ``x`` JAX's bf16 conv with its bias
+    (``_ConvBF16``)."""
+    if x.dtype != torch.bfloat16:
+        return conv(x)
+    return _ConvBF16.apply(x, conv.weight, conv.bias, conv.stride, conv.padding)
+
+
+def conv2d_f32_out(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A bias-free conv of bf16 ``x`` with the weight rounded to bf16, its
+    f32 accumulator not rounded: what JAX's bf16 conv hands to a BatchNorm,
+    whose first op promotes it to f32 (XLA keeps the accumulator there).
+    The products of bf16 values are exact in f32, so an f32 conv of the
+    rounded operands computes it. The weight's gradient stays the f32
+    accumulator too (the rounding is taken out of the backward)."""
+    w = conv.weight
+    w = w + (w.to(torch.bfloat16).to(torch.float32) - w).detach()
+    return F.conv2d(x.to(torch.float32), w, None, conv.stride, conv.padding)
+
+
 class ConvLayer(nn.Module):
     """conv (no bias, k//2 padding) -> BN -> ReLU (hardnet.py:16-25); with
-    ``folded`` a conv with bias -> ReLU."""
+    ``folded`` a conv with bias -> ReLU. It computes in its input's
+    dtype; in bf16 the unfolded layer's BN takes the conv's f32
+    accumulator (``conv2d_f32_out``) and returns bf16."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
                  stride: int = 1, folded: bool = False):
@@ -158,10 +255,12 @@ class ConvLayer(nn.Module):
         self.norm = None if folded else BatchNorm2d(out_ch)
 
     def forward(self, x):
-        x = self.conv(x)
-        if self.norm is not None:
-            x = self.norm(x)
-        return F.relu(x)
+        if self.norm is None:
+            return F.relu(conv2d(self.conv, x))
+        if x.dtype == torch.bfloat16:
+            return F.relu(self.norm(conv2d_f32_out(self.conv, x),
+                                    out_dtype=torch.bfloat16))
+        return F.relu(self.norm(self.conv(x)))
 
 
 class HarDBlock(nn.Module):
@@ -189,12 +288,14 @@ class HarDBlock(nn.Module):
 
 class HarDNet(nn.Module):
     """FCHarDNet-70 over (B, C_in, H, W); logits at the input (or
-    ``final_size``) resolution, or their argmax."""
+    ``final_size``) resolution, or their argmax. ``dtype`` is the compute
+    dtype of every layer (f32 or bf16); the parameters stay f32."""
 
     def __init__(self, in_channels: int, n_classes: int = 19,
-                 folded: bool = False):
+                 folded: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.folded = folded
+        self.dtype = dtype
         first_ch, ch_list, grmul, gr, n_layers = FIRST_CH, CH_LIST, GRMUL, GR, N_LAYERS
         blks = len(n_layers)
         base: List[nn.Module] = [
@@ -217,7 +318,7 @@ class HarDNet(nn.Module):
             ch = ch_list[i]
             if i < blks - 1:
                 # torch keeps the AvgPool in the ModuleList: it takes an index
-                base.append(nn.AvgPool2d(2, 2))
+                base.append(AvgPool2())
         self.base = nn.ModuleList(base)
         ups, dense_up = [], []
         prev_ch = ch
@@ -233,14 +334,19 @@ class HarDNet(nn.Module):
 
     def forward(self, x, final_size: Optional[Tuple[int, int]] = None,
                 return_argmax: bool = False, skip_stem0: bool = False):
-        """x (B, C_in, H, W) -> logits (B, n_classes, H', W') or, with
+        """x (B, C_in, H, W) -> f32 logits (B, n_classes, H', W') or, with
         ``return_argmax``, the (B, H', W') int32 argmax (first index on
         ties). ``skip_stem0``: x is already base.0's output (the fused
-        one-hot stem computed it)."""
+        one-hot stem computed it). x is cast to the compute dtype first
+        (JAX hardnet.py:662)."""
         if skip_stem0:
             size_in = (x.shape[-2] * 2, x.shape[-1] * 2)
         else:
             size_in = (x.shape[-2], x.shape[-1])
+        # the compute dtype: bf16, else the parameters' (f32; float64
+        # after ``.double()``)
+        x = x.to(torch.bfloat16 if self.dtype == torch.bfloat16
+                 else self.finalConv.weight.dtype)
         skips = []
         for i, layer in enumerate(self.base):
             if i == 0 and skip_stem0:
@@ -252,7 +358,9 @@ class HarDNet(nn.Module):
             skip = skips.pop()
             x = resize_bilinear_hw(x, tuple(skip.shape[-2:]))
             x = blk(up(torch.cat([x, skip], 1)))
-        logits = self.finalConv(x)
+        logits = conv2d(self.finalConv, x)
+        if logits.dtype == torch.bfloat16:
+            logits = logits.float()
         out = resize_bilinear_hw(logits, final_size or size_in)
         if return_argmax:
             return torch.argmax(out, 1).to(torch.int32)

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
@@ -78,18 +78,24 @@ def whole(once: Profile, window: Profile, iters: int) -> bool:
         window[k][0] == iters * n for k, (n, _) in once.items())
 
 
-def device_ms(fn: Callable[[], object], iters: int = 50) -> float:
+def device_ms(fn: Callable[[], object], iters: int = 50,
+              per_call: Optional[int] = None) -> float:
     """Mean device time per call of ``fn``: the kernel time torch.profiler
     records over ``iters`` calls, over ``iters``. Unlike ``time_ms`` it
     leaves out the host's time between launches, which bounds a small
     kernel. Only a whole profile counts (``whole``): it is taken again up
-    to ``ATTEMPTS`` times, then this raises."""
+    to ``ATTEMPTS`` times, then this raises. ``per_call``: each kernel
+    of ``fn`` launches that many times a call, known in advance, so no
+    lone call is profiled (a lone call's one small kernel can lose its
+    record in attempt after attempt)."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_ms measures on the GPU; CUDA is not available")
     fn()
     torch.cuda.synchronize()
     for attempt in range(ATTEMPTS):
-        once, window = kernel_profile(fn, 1), kernel_profile(fn, iters)
+        window = kernel_profile(fn, iters)
+        once = ({k: (per_call, 0.0) for k in window} if per_call
+                else kernel_profile(fn, 1))
         if whole(once, window, iters):
             return sum(us for _, us in window.values()) / iters / 1e3
         counts = [{k[:48]: n for k, (n, _) in p.items()} for p in (once, window)]

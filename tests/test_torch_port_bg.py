@@ -169,6 +169,10 @@ def test_seeded_init_is_deterministic_and_folds_real_statistics():
 
 
 def test_bg_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        BGModel({"model": {"num_inputs": T}, "data": {"num_classes": C}},
-                device="cpu")
+    """``convert2onehot`` unset, once refused, is ported: the raw ids enter
+    as one channel per frame (JAX models/bg.py:136-147), so the stem
+    conv takes T channels, and nothing in the bg model layer raises."""
+    model = BGModel({"model": {"num_inputs": T}, "data": {"num_classes": C}},
+                    device="cpu")
+    assert model.model.base[0].conv.in_channels == T
+    assert not model.convert2onehot

@@ -32,8 +32,9 @@ FG_MODEL = {
 }
 
 
-def fg_fixture(root, model_overrides=None):
-    """-> (cfg, jax FGModel, its variables, one scene batch (S, N, ...))."""
+def fg_fixture(root, model_overrides=None, cfg_overrides=None):
+    """-> (cfg, jax FGModel, its variables, one scene batch (S, N, ...));
+    ``cfg_overrides`` sets top-level keys (``use_bbox_ulbr``)."""
     write_fg_fixture(root, n_scenes=3, max_instances=3, feat_channels=32,
                      feat_hw=7)
     cfg = {
@@ -54,6 +55,7 @@ def fg_fixture(root, model_overrides=None):
         },
         "model": dict(FG_MODEL, **(model_overrides or {})),
         "training": {"batch_size": 2},
+        **(cfg_overrides or {}),
     }
     inst_cfg = dict(cfg, data=dict(cfg["data"], dataset_type="fg_instance",
                                    data_splits=["train", "val"]))
@@ -79,11 +81,12 @@ def fg_fixture(root, model_overrides=None):
 
 
 def fg_stats(jax_model):
-    """The JAX FGModel's normalisation statistics, as the port takes them."""
+    """The JAX FGModel's normalisation statistics, as the port takes them
+    (a model without depth or odometry inputs has none of theirs)."""
     return {
-        "traj": (np.asarray(jax_model.traj_mean), np.asarray(jax_model.traj_std)),
-        "depth": (np.asarray(jax_model.depth_mean), np.asarray(jax_model.depth_std)),
-        "odom": (np.asarray(jax_model.odom_mean), np.asarray(jax_model.odom_std)),
+        name: (np.asarray(getattr(jax_model, f"{name}_mean")),
+               np.asarray(getattr(jax_model, f"{name}_std")))
+        for name in ("traj", "depth", "odom") if hasattr(jax_model, f"{name}_mean")
     }
 
 

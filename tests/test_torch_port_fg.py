@@ -92,10 +92,13 @@ def test_expand_traj_mask_matches_jax():
         )
 
 
-@pytest.mark.parametrize("opt", [{"only_loc_feats": True}, {"rnn_type": "lstm"},
-                                 {"no_mask_traj_feats": True}])
+@pytest.mark.parametrize("opt", [{"rnn_type": "rnn"}, {"rnn_type": "LSTM"},
+                                 {"loss_type": "l1"}])
 def test_fg_rejects_unported_options(opt):
+    """Every model option of the JAX model is ported
+    (tests/test_torch_port_fg_options.py); what the port still refuses
+    is what JAX refuses, with JAX's ValueError."""
     from panoptic_forecasting_tpu_torch.models.fg import FGModel
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not recognized"):
         FGModel({"model": opt}, device="cpu")

@@ -30,11 +30,9 @@ BG_CFG = {
 }
 
 
-@pytest.fixture(scope="module")
-def slice_case(tmp_path_factory):
-    cfg, fg_model, fg_vars, scene_batch = fg_fixture(
-        str(tmp_path_factory.mktemp("fgslice"))
-    )
+def slice_inputs(scene_batch):
+    """-> (pc_in, fg_in, out_t, (H, W)): a seeded reprojection scene with
+    the fixture camera and motion for each scene of ``scene_batch``."""
     rng = np.random.RandomState(0)
     s = np.asarray(scene_batch["inputs"]["trajectories"]).shape[0]
     seg = rng.randint(0, 11, size=(s, T, H, W)).astype(np.int32)
@@ -53,14 +51,23 @@ def slice_case(tmp_path_factory):
         "extrinsics": np.tile(E[None], (s, 1, 1)),
         "target_T": np.tile(Ts[None], (s, 1, 1, 1)),
     }
-    bg_model = JaxBGModel(BG_CFG)
-    init = {"inputs": {k: jnp.asarray(pc_in[k][:1]) for k in ("seg", "depth", "depth_mask")}}
-    bg_vars = jax.jit(lambda r: bg_model.init(r, init))(jax.random.PRNGKey(1))
-    bg_vars = jax.tree_util.tree_map(np.asarray, bg_vars)
     out_t = int(np.asarray(scene_batch["labels"]["trajectories"]).shape[2])
     fg_in = {k: np.asarray(v) for k, v in scene_batch["inputs"].items()
              if k != "background"}
     fg_in["output_inds"] = np.asarray(scene_batch["labels"]["output_inds"])
+    return pc_in, fg_in, out_t, (H, W)
+
+
+@pytest.fixture(scope="module")
+def slice_case(tmp_path_factory):
+    cfg, fg_model, fg_vars, scene_batch = fg_fixture(
+        str(tmp_path_factory.mktemp("fgslice"))
+    )
+    pc_in, fg_in, out_t, _ = slice_inputs(scene_batch)
+    bg_model = JaxBGModel(BG_CFG)
+    init = {"inputs": {k: jnp.asarray(pc_in[k][:1]) for k in ("seg", "depth", "depth_mask")}}
+    bg_vars = jax.jit(lambda r: bg_model.init(r, init))(jax.random.PRNGKey(1))
+    bg_vars = jax.tree_util.tree_map(np.asarray, bg_vars)
     return cfg, fg_model, fg_vars, bg_model, bg_vars, pc_in, fg_in, out_t
 
 

@@ -37,3 +37,19 @@ def test_timers_raise_without_cuda(timer, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         timer(lambda: None)
+
+
+def test_device_ms_per_call_takes_no_lone_call(monkeypatch):
+    """With ``per_call`` the window alone decides: each kernel there
+    ``iters * per_call`` times."""
+    calls = []
+
+    def profile(fn, n):
+        calls.append(n)
+        return {"stem": (n, 2.0 * n)}
+
+    monkeypatch.setattr(_timing.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(_timing.torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(_timing, "kernel_profile", profile)
+    assert _timing.device_ms(lambda: None, 50, per_call=1) == 2.0 / 1e3
+    assert calls == [50]
