@@ -14,7 +14,8 @@ and fg models (``cli.train``, phase 15) and of the bg model, whose
 trained weights then serve through K2 (phase 16), the same training
 data-parallel (``cli.train --distributed``, phase 17), the same paths
 with ``model.compute_dtype: bfloat16`` and under each model option
-(phase 18), and the single-call panoptic
+(phase 18), the pc, odometry and fg data options and the PNG kinds the
+decoder expands (phase 19), and the single-call panoptic
 forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
@@ -132,7 +133,7 @@ Phases (any failure exits non-zero):
      before each run and read just after (the training path reaches no
      kernel of the port; printed): configs/odom/odom_train.yaml at full
      width (batch 32, GRU 128) on phase 13's 500-snippet table, 2 epochs
-     of 50 steps; configs/fg/fg_train.yaml at full width (batch 32, GRU
+     of 25 steps; configs/fg/fg_train.yaml at full width (batch 32, GRU
      128, 2 ConvLSTM layers over 256x14x14 features) on a 10-scene fg
      fixture with a train split (>= 32 tracks), 2 epochs of 10 steps,
      then resumed for a third: it continues at step 20 with the saved
@@ -180,7 +181,7 @@ Phases (any failure exits non-zero):
      steps): the backend NCCL, the epoch losses and ``best_model``
      bit-equal to phase 16's; (b) two gloo ranks on the one card (NCCL
      refuses two ranks on one device) for odom_train.yaml (batch 32, 16
-     a rank, 2 x 50 steps on phase 15's table), fg_train.yaml (2 x 10 on
+     a rank, 2 x 25 steps on phase 15's table), fg_train.yaml (2 x 10 on
      phase 15's fixture) and bg_train.yaml (8, 4 a rank; 2 x 3 on phase
      16's), each against its one-process run of phases 15-16: both ranks
      equal, losses finite; odom's every epoch's train and val loss within
@@ -229,12 +230,30 @@ Phases (any failure exits non-zero):
      4-step cli.train of fg_train.yaml with the LSTM (bias_ih_l0 still 0,
      no kernel launched) and its narrow step against the CPU (phase 15's
      bounds).
+ 19. the data options, each CLI counted: (a) prepare_bg_data and the pc
+     export (configs/pc_transform/pc_export.yaml) at 1024x2048 on one
+     snippet under use_cascade_disps with disparity_dir, use_mono
+     (192x640 .npy disparities), expand_test (15 targets) and cities:
+     place_min_fold 3x per pc batch (prepare) and 1x (export), place_min
+     never; a second run of each with check_output_dir on the first's
+     outputs launches nothing and writes nothing; (b) the use_imgs export
+     (is_img): one RGB frame through the exact z-buffer, no K1; (c)
+     cli.forecast_fused on phase 12's fixture with a cascade pc config: K1
+     and K2 once a frame; (d) the card against the CPU: every output file
+     of (a)-(b) equal at 256x512 (mono at 1024x2048, the only size its
+     depth takes), the cascade CLI's ids equal and < 1e-3 of pixels
+     apart (phase 12's budget); (e) cli.train of odom_train.yaml with
+     load_imgs (1024x2048 frames, short side 256; batch 8, 2 steps) and of
+     fg_train.yaml with use_condensed_feats (2 steps), each with the same
+     losses as the run without the option, no kernel launched, and the
+     image loader's ms a batch; (f) the decode ms of a 1024x2048 Adam7 and
+     a palette label map beside phase 12's plain one.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (both K1 entry points, K2 and its bf16 entry, K3 and each K4
 probe) and the CLI's, the scoring's, the staged chain's, the training's
-(bg's under ``train.bg``, data parallelism's under ``train.dp``) and
-phase 18's readings (``bf16``), and last
+(bg's under ``train.bg``, data parallelism's under ``train.dp``),
+phase 18's readings (``bf16``) and phase 19's (``data_options``), and last
 a JSON line
 {"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
@@ -1727,6 +1746,7 @@ def staged_phase(dev, fixtures, card):
 # ---- 15. training ---------------------------------------------------------------
 
 TRAIN_FG_SCENES = 10  # phase 12's fg fixture with a train split: >= 32 tracks
+ODOM_STEPS = 25  # steps per epoch of the odom cli.train runs (phases 15, 17)
 NARROW_FG = (("model.mask_feat_channels", 32), ("model.mask_feat_hw", 7),
              ("model.mask_head.conv_dim", 32), ("model.rnn_hidden", 32),
              ("model.instance_feat_hidden", 32), ("training.batch_size", 8))
@@ -1929,7 +1949,7 @@ def train_phase(dev, root, card, refs):
         raise SystemExit(f"the fg train split holds {tracks} tracks, fewer than a batch")
 
     odom_argv = train_argv("odom", os.path.join(root, "odom_run"), odom_dir,
-                           ("training.steps_per_epoch", 50), ("training.num_epochs", 2))
+                           ("training.steps_per_epoch", ODOM_STEPS), ("training.num_epochs", 2))
     odom, odom_launches, odom_s = train_cli_run(odom_argv, odom_store)
     wd = os.path.join(root, "fg_run")
     fg_argv = train_argv("fg", wd, fg_dir, ("training.steps_per_epoch", 10),
@@ -1963,8 +1983,9 @@ def train_phase(dev, root, card, refs):
     print(f"[train] odom {odom['step']} steps in {odom_s:.1f} s, fg {fg['step']} "
           f"steps in {fg_s:.1f} s, resumed at epoch {saved['epoch']} step "
           f"{saved['step']}: {resumed['step']} steps, Adam step count {adam_steps}")
-    if (odom["step"], fg["step"], saved["step"], saved["epoch"]) != (100, 20, 20, 3):
-        raise SystemExit("the training runs took other steps than 2 epochs of 50 / 10")
+    if (odom["step"], fg["step"], saved["step"], saved["epoch"]) != (2 * ODOM_STEPS, 20, 20, 3):
+        raise SystemExit(f"the training runs took other steps than 2 epochs of "
+                         f"{ODOM_STEPS} / 10")
     if ([h["epoch"] for h in resumed["history"]] != [3] or resumed["step"] != 30
             or after["step"] != 30 or adam_steps != 30):
         raise SystemExit("the resumed fg run did not continue from the saved step "
@@ -2625,7 +2646,7 @@ def dp_phase(dev, root, card, refs):
         failures.append(f"bg training under NCCL launched a kernel: {nccl['launches']}")
 
     # (b) two gloo ranks on the one card
-    odom_steps = (("training.steps_per_epoch", 50), ("training.num_epochs", 2))
+    odom_steps = (("training.steps_per_epoch", ODOM_STEPS), ("training.num_epochs", 2))
     fg_steps = (("training.steps_per_epoch", 10), ("training.num_epochs", 2))
     jobs = [{"name": "odom", "wd": wd("odom"), "store": "odom",
              "argv": train_argv("odom", wd("odom"), refs["odom_dir"], *odom_steps)},
@@ -3123,6 +3144,396 @@ def bf16_phase(dev, root, card, fixtures, refs, train_readings):
     return entry, readings
 
 
+# ---- 19. the data options -------------------------------------------------------
+
+MONO_SIZE = (192, 640)  # monodepth .npy disparities, below 1024x2048
+OPTION_GAP = 9
+PC_OPTIONS = {  # name: the pc config's data options ("{disp}": the fixture's dir)
+    "cascade": {"use_cascade_disps": True, "disparity_dir": "{disp}"},
+    "mono": {"use_mono": True, "disparity_dir": "{disp}"},
+    "expand_test": {"expand_test": True},
+    "cities": {"cities": [synthetic.CITY]},
+}
+ODOM_IMG_SNIPPETS = 3
+ODOM_IMG_SETS = (("training.batch_size", 8), ("training.steps_per_epoch", 2),
+                 ("training.num_epochs", 1))
+
+
+def option_fixture(root, height, width, mono=True):
+    """Phase 19's pc fixture: one snippet at gap 9 with the PNGs of every
+    target (``expand_test``: 15), its RGB frames, flat cascade
+    disparities and (``mono``) sub-resolution monodepth .npy files under
+    ``disp``, predicted odometry for every start. -> (store, {dir: path})."""
+    dirs = {d: os.path.join(root, d) for d in ("cs", "disp", "odom")}
+    store = synthetic.write_cityscapes_fixture(
+        dirs["cs"], "val", n_snippets=1, height=height, width=width, seed=SEED,
+        gap_len=OPTION_GAP, all_targets=True, images=True, cascade=True,
+        mono_size=MONO_SIZE if mono else None, disparity_dir=dirs["disp"])
+    synthetic.write_odom_predictions(
+        os.path.join(dirs["odom"], "odometry_val.h5"),
+        store["tables"][os.path.join(dirs["cs"], "val_3d_info.pkl")],
+        starts=range(6, 30 - OPTION_GAP), seed=SEED, store=store)
+    return store, dirs
+
+
+def option_pc_cfg(dirs, **data):
+    """configs/pc_transform/pc_export.yaml on the option fixture, with
+    ``data`` options."""
+    cfg = conf("pc_transform", "pc_export.yaml")
+    cfg["data"].update(cityscapes_dir=dirs["cs"], data_dir=dirs["cs"],
+                       seg_dir=os.path.join(dirs["cs"], "seg"), gap_len=OPTION_GAP,
+                       odom_pred_dir=dirs["odom"], data_splits=["val"])
+    cfg["data"].update({k: (v.format(**dirs) if isinstance(v, str) else v)
+                        for k, v in data.items()})
+    return cfg
+
+
+def pc_option_run(cfg, store, root, tag, platform, prepare=True, outputs=None):
+    """prepare_bg_data (``prepare``) and the pc export of ``cfg`` on
+    ``platform``, each counted, writing under ``root`` (or into the
+    ``outputs`` of an earlier run): {cli: (report, launches, seconds)}
+    and the output dirs ``wd`` and ``bg_out``."""
+    path = dump(os.path.join(root, f"pc_{tag}.yaml"), cfg)
+    out = dict(outputs or {"wd": os.path.join(root, f"pc_{tag}"),
+                           "bg_out": os.path.join(root, f"bg_{tag}")})
+    wd, bg_out = out["wd"], out["bg_out"]
+    plat = ["--set", "platform", platform]
+    with store_readers(store):
+        if prepare:
+            out["prepare"] = counted(prepare_bg_data.main, [
+                "--working_dir", wd, "--config_file", path, "--set", "bg_out",
+                bg_out] + plat)
+        out["export"] = counted(export_segmentation.main,
+                                ["--working_dir", wd, "--config_file", path] + plat)
+    return out
+
+
+def output_tree(root, store):
+    """{path under ``root``: bytes} of every file a run wrote there, an
+    h5 file's datasets as ``path:key`` (from the store where h5py is
+    missing here)."""
+    out = {}
+    for p in sorted(glob.glob(os.path.join(root, "**", "*"), recursive=True)):
+        rel = os.path.relpath(p, root)
+        if os.path.isdir(p):
+            continue
+        if p.endswith(".h5"):
+            import h5py
+
+            with h5py.File(p, "r") as h5:
+                h5.visititems(lambda k, v: out.__setitem__(
+                    f"{rel}:{k}", v[()].tobytes()) if isinstance(v, h5py.Dataset) else None)
+            continue
+        with open(p, "rb") as f:
+            out[rel] = f.read()
+    for path, arrays in store["arrays"].items():
+        if path.startswith(root + os.sep) and not os.path.exists(path):
+            rel = os.path.relpath(path, root)
+            out.update({f"{rel}:{k}": np.asarray(v).tobytes() for k, v in arrays.items()})
+    return out
+
+
+def listing(root):
+    """(path, size, mtime) of every file under ``root``."""
+    return sorted((p, os.path.getsize(p), os.stat(p).st_mtime_ns) for p in glob.glob(
+        os.path.join(root, "**", "*"), recursive=True) if not os.path.isdir(p))
+
+
+def same_outputs(a, b, what):
+    if sorted(a) != sorted(b):
+        raise SystemExit(f"{what}: the card wrote {sorted(set(a) ^ set(b))[:6]} where "
+                         f"the CPU did not, or the reverse")
+    differ = [k for k in a if a[k] != b[k]]
+    if differ:
+        raise SystemExit(f"{what}: card and CPU differ in {len(differ)} of {len(a)} "
+                         f"outputs, e.g. {differ[:4]}")
+    return len(a)
+
+
+def launched(counts):
+    """The kernels of ``counts`` launched at least once."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_option_launches(name, run, items):
+    """K1's fold 3x per pc batch in prepare_bg_data, 1x in the export
+    (batch 1: per item); the generic place_min never."""
+    got = {cli: run[cli][1] for cli in ("prepare", "export") if cli in run}
+    want = {"prepare": 3 * items, "export": items}
+    for cli, launches in got.items():
+        if launches["place_min_fold"] != want[cli] or launches["place_min"]:
+            raise SystemExit(f"{name}: {cli} launched {launches}, not place_min_fold "
+                             f"{want[cli]} times and place_min never")
+    return got
+
+
+def raw_png(samples, ctype, depth=8, interlace=False, plte=None):
+    """(H, W, C) samples -> PNG bytes of colour type ``ctype``, every row
+    unfiltered (each Adam7 pass on its own), zlib level 1: the cases the
+    port's encoder does not write (palette, interlaced)."""
+    import zlib
+
+    def chunk(kind, body):
+        return (len(body).to_bytes(4, "big") + kind + body
+                + (zlib.crc32(kind + body) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+    h, w, _ = samples.shape
+    rows = []
+    for y0, x0, dy, dx in (png.ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx].astype(np.uint8)
+        if sub.size:
+            rows.append(np.concatenate([np.zeros((sub.shape[0], 1), np.uint8),
+                                        sub.reshape(sub.shape[0], -1)], 1).tobytes())
+    ihdr = (w.to_bytes(4, "big") + h.to_bytes(4, "big")
+            + bytes([depth, ctype, 0, 0, int(interlace)]))
+    return (png.SIGNATURE + chunk(b"IHDR", ihdr)
+            + (chunk(b"PLTE", plte) if plte is not None else b"")
+            + chunk(b"IDAT", zlib.compress(b"".join(rows), 1)) + chunk(b"IEND", b""))
+
+
+def expand_decode_ms(height, width):
+    """Host ms of one decode_png at height x width of an Adam7 label map
+    and of a palette label map (Cityscapes' colours), each checked."""
+    from panoptic_forecasting_tpu_torch.data.cityscapes import train_id_color_palette
+
+    labels = synthetic.make_scene_sequence(1, height, width)[0][0].astype(np.uint8)
+    colours = np.zeros((256, 3), np.uint8)
+    pal = train_id_color_palette()
+    colours[: len(pal)] = pal[:256]
+    cases = {"adam7_labels8": (raw_png(labels[..., None], 0, interlace=True), labels),
+             "palette_labels8": (raw_png(labels[..., None], 3, plte=colours.tobytes()),
+                                 colours[labels])}
+    ms = {}
+    for name, (data, want) in cases.items():
+        times = []
+        for _ in range(3):
+            ts = time.perf_counter()
+            got = png.decode_png(data)
+            times.append((time.perf_counter() - ts) * 1e3)
+        if not np.array_equal(got, want):
+            raise SystemExit(f"PNG decode of {name} is wrong")
+        ms[name] = sorted(times)[1]
+    return ms
+
+
+def cascade_from_stereo(cs, out_dir):
+    """Flat cascade disparity PNGs (``disp·256``) of every stereo
+    ``disparity_sequence`` PNG (``disp·256 + 1``) of the fixture at ``cs``."""
+    paths = glob.glob(os.path.join(cs, "disparity_sequence", "val", "*", "*_disparity.png"))
+    for p in paths:
+        code = load_png(p)
+        name = os.path.basename(p)[: -len("_disparity.png")]
+        save_png(os.path.join(out_dir, f"{name}_leftImg8bit.png"),
+                 np.where(code > 0, code - 1, 0).astype(np.uint16), **data_io.PNG_IDS)
+    return len(paths)
+
+
+def cascade_cli_cfg(cfg, root, tag):
+    """phase 12's CLI config ``cfg`` with a cascade pc config (flat
+    disparities made from its stereo ones under ``root``)."""
+    cs = os.path.join(os.path.dirname(cfg["working_dir"]), "cs")
+    flat = os.path.join(root, f"cascade_{tag}")
+    cascade_from_stereo(cs, flat)
+    pc = read_yaml(cfg["fused"]["pc_config"])
+    pc["data"].update(use_cascade_disps=True, disparity_dir=flat)
+    return dict(cfg, fused=dict(cfg["fused"], pc_config=dump(
+        os.path.join(root, f"pc_cascade_{tag}.yaml"), pc)))
+
+
+def pc_options_phase(dev, root, fixtures):
+    """(a)-(d): each pc option through prepare_bg_data and the pc export
+    at 1024x2048 on the card, counted; check_output_dir on a finished
+    export; use_imgs's export; the fused CLI on a cascade pc config;
+    card against CPU."""
+    readings = {}
+    full = os.path.join(root, "full")
+    ts = time.perf_counter()
+    store, dirs = option_fixture(full, H, W)
+    readings["fixture_s"] = time.perf_counter() - ts
+    for name, opts in PC_OPTIONS.items():
+        items = 30 - (6 + OPTION_GAP) if name == "expand_test" else 1
+        run = pc_option_run(option_pc_cfg(dirs, **opts), store, full, name, "cuda")
+        launches = check_option_launches(name, run, items)
+        readings[name] = {"items": items, "launches": launches,
+                          "s": {c: run[c][2] for c in ("prepare", "export")}}
+        print(f"[data] pc {name} at {H}x{W}: {items} items, launches "
+              f"{ {c: launched(v) for c, v in launches.items()} }, "
+              f"prepare {run['prepare'][2]:.2f} s, export {run['export'][2]:.2f} s")
+        if name == "expand_test":
+            done = run
+        if name == "mono":  # the mono depth is 1024x2048: card against CPU here
+            cpu = pc_option_run(option_pc_cfg(dirs, **opts), store, full, "mono_cpu", "cpu")
+            n = same_outputs(output_tree(cpu["bg_out"], store),
+                             output_tree(run["bg_out"], store), "mono prepare_bg_data")
+            n += same_outputs(output_tree(cpu["wd"], store), output_tree(run["wd"], store),
+                              "mono export")
+            readings[name]["card_equals_cpu_files"] = n
+            print(f"[data] pc mono: the card's {n} files equal the CPU's at {H}x{W}")
+
+    # check_output_dir on the finished expand_test outputs: nothing to do
+    before = listing(done["wd"]) + listing(done["bg_out"])
+    again = option_pc_cfg(dirs, expand_test=True, check_output_dir=os.path.join(
+        done["wd"], "exported_predictions"))
+    export_again = pc_option_run(again, store, full, "resume_export", "cuda",
+                                 prepare=False, outputs=done)
+    again["data"]["check_output_dir"] = os.path.join(
+        done["bg_out"], "point_cloud_static_ind0_all", "exported_predictions")
+    prepare_again = pc_option_run(again, store, full, "resume_prepare", "cuda",
+                                  outputs=done)["prepare"]
+    resumed = {"export": export_again["export"][1], "prepare": prepare_again[1]}
+    unchanged = listing(done["wd"]) + listing(done["bg_out"]) == before
+    readings["check_output_dir"] = {"launches": resumed, "unchanged": unchanged}
+    print(f"[data] check_output_dir on the expand_test outputs: launches "
+          f"{ {c: launched(v) for c, v in resumed.items()} }, "
+          f"files unchanged {unchanged}")
+    if any(sum(v.values()) for v in resumed.values()) or not unchanged:
+        raise SystemExit("check_output_dir: a finished export ran again")
+
+    # (b) use_imgs: the RGB payload through the exact z-buffer, no K1
+    imgs_cfg = option_pc_cfg(dirs, use_imgs=True)
+    imgs_cfg.update(is_img=True, model={"is_img": True})
+    imgs = pc_option_run(imgs_cfg, store, full, "use_imgs", "cuda", prepare=False)
+    launches = imgs["export"][1]
+    written = glob.glob(os.path.join(imgs["wd"], "**", "*_leftImg8bit.png"), recursive=True)
+    rgb = load_png(written[0]) if written else None
+    readings["use_imgs"] = {"launches": launches, "frames": len(written),
+                            "s": imgs["export"][2]}
+    print(f"[data] pc use_imgs at {H}x{W}: launches {launched(launches)}, {len(written)} RGB "
+          f"frames, {imgs['export'][2]:.2f} s")
+    if sum(launches.values()) or len(written) != 1 or rgb.shape != (H, W, 3) or not rgb.any():
+        raise SystemExit("use_imgs: not one RGB frame through the exact z-buffer")
+
+    # (c) the fused CLI on a cascade pc config: K1 and K2 once a frame
+    cfg, cli_store, _ = fixtures["full"]
+    cfg_c = cascade_cli_cfg(cfg, os.path.join(root, "fused"), "full")
+    reset_counts()
+    report = run_cli(cfg_c, cli_store, "cuda", "fused_cascade")
+    torch.cuda.synchronize()
+    launches, frames = read_counts(), report["frames"]
+    readings["fused_cascade"] = {"frames": frames, "launches": launches,
+                                 "seconds": report["seconds"]}
+    print(f"[data] forecast_fused with cascade disparities at {H}x{W}: {frames} frames, "
+          f"launches {launched(launches)}, {report['seconds']:.2f} s")
+    if (frames != CLI_SCENES or launches["place_min_fold"] != frames
+            or launches["onehot_stem_conv"] != frames or launches["place_min"]):
+        raise SystemExit(f"fused cascade: {frames} frames, launches {launches}")
+
+    # (d) card against CPU at 256x512 (mono above, at full width)
+    small_root = os.path.join(root, "small")
+    small_store, small_dirs = option_fixture(small_root, H_SMALL, W_SMALL, mono=False)
+    compared = 0
+    for name, opts in dict(PC_OPTIONS, use_imgs={"use_imgs": True}).items():
+        if name == "mono":
+            continue
+        cfg_s = option_pc_cfg(small_dirs, **opts)
+        if name == "use_imgs":
+            cfg_s.update(is_img=True, model={"is_img": True})
+        runs = {p: pc_option_run(cfg_s, small_store, small_root, f"{name}_{p}", p,
+                                 prepare=name != "use_imgs") for p in ("cuda", "cpu")}
+        for key in ("wd", "bg_out") if name != "use_imgs" else ("wd",):
+            compared += same_outputs(output_tree(runs["cpu"][key], small_store),
+                                     output_tree(runs["cuda"][key], small_store),
+                                     f"{name} at {H_SMALL}x{W_SMALL}")
+    small, small_cli_store, _ = fixtures["small"]
+    small_c = cascade_cli_cfg(small, os.path.join(root, "fused"), "small")
+    outs = {p: cli_outputs(run_cli(small_c, small_cli_store, p, f"cascade_{p}"))[0]
+            for p in ("cuda", "cpu")}
+    worst = max(float((outs["cuda"][k] != outs["cpu"][k]).mean()) for k in outs["cpu"])
+    ids = all(set(np.unique(outs["cuda"][k])) == set(np.unique(outs["cpu"][k]))
+              for k in outs["cpu"])
+    readings["small"] = {"files_equal": compared, "fused_ids_equal": ids,
+                         "fused_worst": worst}
+    print(f"[data] card against CPU at {H_SMALL}x{W_SMALL}: {compared} pc output files "
+          f"equal (cascade, expand_test, cities, use_imgs); fused cascade CLI ids "
+          f"equal {ids}, worst panoptic mismatch {worst:.3e} (phase 12's budget 1e-3: "
+          f"HarDNet and the fg model in cuDNN)")
+    if not ids or not worst < 1e-3:
+        raise SystemExit("the fused cascade CLI on the card and the CPU disagree")
+    return readings
+
+
+def option_train_phase(dev, root, refs, train_readings):
+    """(e) odom_train.yaml with load_imgs (1024x2048 frames, short side
+    256) against the same run without images; fg_train.yaml with
+    use_condensed_feats against the plain run; each cli.train counted."""
+    readings = {}
+    odom_dir, cs = os.path.join(root, "odom_imgs"), os.path.join(root, "odom_cs")
+    store = synthetic.write_odom_fixture(odom_dir, n_snippets=ODOM_IMG_SNIPPETS)
+    for split in ("train", "val"):
+        synthetic.write_odom_images(cs, store["tables"][os.path.join(
+            odom_dir, f"{split}_3d_info.pkl")], split, H, W, seed=SEED)
+    imgs = (("data.load_imgs", "true"), ("data.min_img_len", 256),
+            ("data.cityscapes_dir", cs))
+    runs, argvs = {}, {}
+    for name, sets in (("plain", ()), ("load_imgs", imgs)):
+        argvs[name] = train_argv("odom", os.path.join(root, f"odom_{name}"), odom_dir,
+                                 *ODOM_IMG_SETS, *sets)
+        with cudnn_deterministic():
+            result, launches, secs = train_cli_run(argvs[name], store)
+        runs[name] = ([(h["train"], h["val"]) for h in result["history"]],
+                      result["step"], secs, launches)
+    loader = loader_ms(argvs["load_imgs"], store, batches=3)
+    plain_loader = loader_ms(argvs["plain"], store, batches=3)
+    hist, steps, secs, launches = runs["load_imgs"]
+    equal = hist == runs["plain"][0]
+    phase15 = train_readings["steps"]["odom"]["ms_median"]
+    readings["odom_load_imgs"] = {
+        "steps": steps, "s": secs, "plain_s": runs["plain"][2], "launches": launches,
+        "losses_equal": equal, "loader_ms_per_batch": loader,
+        "plain_loader_ms_per_batch": plain_loader,
+        "phase15_step_ms": phase15}
+    print(f"[data] cli.train odom_train.yaml with load_imgs (batch 8 of 9 {H}x{W} "
+          f"frames, short side 256): {steps} steps in {secs:.2f} s against "
+          f"{runs['plain'][2]:.2f} s without images (run first); loader {loader[0]:.1f} "
+          f"ms a batch (min {loader[1]:.1f}, max {loader[2]:.1f}), "
+          f"{plain_loader[0]:.2f} without images; phase 15's fixed-batch odom "
+          f"step {phase15:.2f} ms (batch 32); losses equal the run without images: "
+          f"{equal}; launches {launched(launches)}")
+    if not equal or steps != 2 or any(launches.values()):
+        raise SystemExit("odom load_imgs: the run differs from the run without images")
+
+    fg_dir, fg_store = refs["fg_dir"], refs["fg_store"]
+    synthetic.write_condensed_feats(fg_dir, fg_store)
+    runs = {}
+    for name, sets in (("plain", ()), ("condensed", (("data.use_condensed_feats", "true"),))):
+        argv = train_argv("fg", os.path.join(root, f"fg_{name}"), fg_dir,
+                          ("training.steps_per_epoch", 2), ("training.num_epochs", 1),
+                          *sets)
+        with cudnn_deterministic():
+            result, launches, secs = train_cli_run(argv, fg_store)
+        runs[name] = ([(h["train"], h["val"]) for h in result["history"]],
+                      result["step"], secs, launches)
+    equal = runs["condensed"][0] == runs["plain"][0]
+    readings["fg_condensed"] = {"steps": runs["condensed"][1], "s": runs["condensed"][2],
+                                "losses_equal": equal, "launches": runs["condensed"][3]}
+    print(f"[data] cli.train fg_train.yaml with use_condensed_feats: "
+          f"{runs['condensed'][1]} steps in {runs['condensed'][2]:.2f} s, losses equal "
+          f"the plain run's: {equal}, launches {launched(runs['condensed'][3])}")
+    if not equal or any(runs["condensed"][3].values()):
+        raise SystemExit("fg use_condensed_feats: the run differs from the plain run")
+    return readings
+
+
+def data_options_phase(dev, root, fixtures, refs, train_readings, cli_readings):
+    """Phase 19: the data options (see the module doc)."""
+    ts0 = time.perf_counter()
+    root = os.path.join(root, "data_options")  # beside the earlier phases' files
+    readings = pc_options_phase(dev, root, fixtures)
+    ts1 = time.perf_counter()
+    readings["train"] = option_train_phase(dev, root, refs, train_readings)
+    ts2 = time.perf_counter()
+    readings["png_decode_ms"] = expand_decode_ms(H, W)
+    plain = cli_readings["png_decode_ms"]["labels8_none"]
+    print(f"[data] decode ms at {H}x{W}: " + json.dumps(readings["png_decode_ms"])
+          + f"; phase 12's unfiltered label map {plain:.2f}")
+    readings["part_s"] = {"a-d": ts1 - ts0, "e": ts2 - ts1,
+                          "f": time.perf_counter() - ts2}
+    readings["phase_s"] = time.perf_counter() - ts0
+    print(f"[data] phase 19 took {readings['phase_s']:.1f} s (a-d {ts1 - ts0:.1f}, "
+          f"e {ts2 - ts1:.1f})")
+    return readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3344,6 +3755,8 @@ def main() -> int:
         train_readings["dp"] = dp_phase(dev, root, card, refs)
         k2_bf16_entry, bf16_readings = bf16_phase(dev, root, card, fixtures, refs,
                                                   train_readings)
+        data_readings = data_options_phase(dev, root, fixtures, refs, train_readings,
+                                           cli_readings)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
@@ -3434,7 +3847,7 @@ def main() -> int:
         k: cli_readings[k] for k in ("frames", "frames_per_s", "median_ms",
                                      "png_decode_ms", "thing_pixels")},
         "score": score_readings, "staged": staged_readings, "train": train_readings,
-        "bf16": bf16_readings}))
+        "bf16": bf16_readings, "data_options": data_readings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

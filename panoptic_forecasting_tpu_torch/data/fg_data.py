@@ -28,9 +28,12 @@ Cityscapes heuristics kept: ``filter_car_gap``
 (fg_instance_dataset.py:184-217), ``add_car_offscreen_loc`` (219-286).
 
 Tables are read through ``io.read_table`` (rows as dicts) and h5 files
-through ``io.open_h5``. The condensed-feats variant
-(``use_condensed_feats``) is set by no shipped config and raises
-``NotImplementedError`` in the track dataset.
+through ``io.open_h5``. With ``use_condensed_feats`` both datasets read
+the features from ``{split}_condensed_feats.h5``, indexed by the
+``feat_ind`` column of ``{split}_instance_condensed_feat_info.pkl`` (per
+track) or ``{split}_seq_condensed_feat_info.pkl`` (per scene), whose rows
+align with the meta tables' (fg_instance_dataset.py:64-68, 371-375;
+fg_scene_dataset.py:68-72).
 """
 
 from __future__ import annotations
@@ -202,8 +205,6 @@ class FGInstanceDataset:
     def __init__(self, split: str, cfg: Dict[str, Any], card: DataCard,
                  test: bool = False):
         d = cfg.get("data", {})
-        if d.get("use_condensed_feats"):
-            raise NotImplementedError("fg data.use_condensed_feats is not ported")
         self.split = split
         self.test = test
         self.input_len = int(d.get("input_len", 3))
@@ -230,8 +231,17 @@ class FGInstanceDataset:
         depth_rows = io.read_table(os.path.join(
             d.get("depth_dir", data_dir), f"{split}_{depth_stem}_instance_info.pkl"))
         self.depths = [np.asarray(r["depth"]) for r in depth_rows]
+        feats_dir = d.get("feats_dir", data_dir)
+        # condensed-feats variant: another h5 and a feat_ind column whose
+        # rows align with the meta table's (fg_instance_dataset.py:64-68)
+        condensed = bool(d.get("use_condensed_feats"))
+        self.feat_inds = None
+        if condensed and not self.no_feats:
+            self.feat_inds = [np.asarray(r["feat_ind"]) for r in io.read_table(
+                os.path.join(feats_dir, f"{split}_instance_condensed_feat_info.pkl"))]
+        feats_name = f"{split}_condensed_feats.h5" if condensed else f"{split}_feats.h5"
         self.feats_h5 = None if self.no_feats else io.open_h5(
-            os.path.join(d.get("feats_dir", data_dir), f"{split}_feats.h5"))
+            os.path.join(feats_dir, feats_name))
         self._dsets: Dict[Tuple[str, str, int], Any] = {}
         self.data3d = None
         if self.use_3d_info:
@@ -340,7 +350,9 @@ class FGInstanceDataset:
         dvel = np.concatenate([np.zeros((1, 1), np.float32), depths[1:] - depths[:-1]])
         depths = np.concatenate([depths, dvel], axis=-1)
 
-        feats = self._load_feats(city, seq, frame, np.asarray(rec["feat_ind"])[inds])
+        feat_inds = (np.asarray(rec["feat_ind"]) if self.feat_inds is None
+                     else self.feat_inds[idx])
+        feats = self._load_feats(city, seq, frame, feat_inds[inds])
         one_hot = np.zeros(8, np.float32)
         one_hot[cl - 11] = 1
         n_in = self.input_len

@@ -2,11 +2,22 @@
 
 The JAX package reads and writes PNG through libpng (its ``native/``
 module) or Pillow; the port carries its own codec so that it needs
-neither. It covers what the Cityscapes artifacts use: non-interlaced
-gray, gray + alpha, RGB and RGBA images at 8 or 16 bits per sample,
-with any of the five row filters (None, Sub, Up, Average, Paeth).
-Palette images, bit depths below 8 and Adam7 interlacing raise
-``NotImplementedError``.
+neither. The decoder returns what the JAX package's native reader
+returns, the rows of libpng's ``png_set_expand`` + ``png_read_image``:
+
+* gray, gray + alpha, RGB and RGBA at 8 or 16 bits per sample, as stored;
+* gray at 1, 2 or 4 bits scaled to 8 (``v * 255 / (2**bits - 1)``);
+* palette images (colour type 3, at 1, 2, 4 or 8 bits) looked up into
+  RGB, or RGBA when a ``tRNS`` chunk is present (entries past the
+  chunk's end opaque; indices past the palette's end black);
+* gray or RGB with a ``tRNS`` chunk given an alpha channel: 0 where the
+  pixel equals the chunk's colour, the largest sample elsewhere;
+* Adam7 interlacing: each of the seven passes unfiltered on its own,
+  then scattered into the image.
+
+Rows may use any of the five filters (None, Sub, Up, Average, Paeth). A
+colour type or bit depth that the PNG standard does not define, or an
+interlace method other than 0 and 1, raises ``NotImplementedError``.
 
 Decoding undoes Sub and Up rows with whole-row numpy operations. Average
 and Paeth make each byte depend on the byte to its left after that one
@@ -19,14 +30,15 @@ Encoding writes one filter type on every row (None by default: the
 JAX package's ``PNG_IDS`` profile for id maps, ``data/io.py:60-66``), or
 picks each row's filter as libpng does. It writes the bytes libpng
 writes for the same image and settings (deflate parameters, window size,
-IDAT chunks), so the port's files equal the JAX package's.
+IDAT chunks), so the port's files equal the JAX package's. It writes
+8- and 16-bit gray, gray + alpha, RGB and RGBA, never interlaced.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -51,23 +63,40 @@ def _chunks(data: bytes):
     raise ValueError("PNG file ends before its IEND chunk")
 
 
-def _header(data: bytes) -> Tuple[int, int, int, int, bytes]:
-    """-> (height, width, bit depth, channels, concatenated IDAT)."""
-    ihdr, idat = None, []
+# colour type -> samples per pixel as stored (3: one palette index)
+STORED_CHANNELS = {**CHANNELS, 3: 1}
+# colour type -> the bit depths the PNG standard allows
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (first row, first column, row step, column step) of each pass
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _header(data: bytes) -> Dict[str, Any]:
+    """The IHDR fields, the PLTE and tRNS chunks and the IDAT stream."""
+    ihdr, idat, plte, trns = None, [], None, None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             ihdr = body
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
     if ihdr is None:
         raise ValueError("PNG file has no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", ihdr)
-    if ctype not in CHANNELS or depth not in (8, 16):
+    if depth not in DEPTHS.get(ctype, ()):
         raise NotImplementedError(
             f"PNG colour type {ctype} at {depth} bits is not supported")
-    if interlace:
-        raise NotImplementedError("interlaced PNG is not supported")
-    return h, w, depth, CHANNELS[ctype], b"".join(idat)
+    if interlace > 1:
+        raise NotImplementedError(f"PNG interlace method {interlace} is not supported")
+    if ctype == 3 and plte is None:
+        raise ValueError("palette PNG file has no PLTE chunk")
+    return {"height": h, "width": w, "depth": depth, "ctype": ctype,
+            "interlace": interlace, "plte": plte, "trns": trns,
+            "idat": b"".join(idat)}
 
 
 def _paeth(a, b, c):
@@ -115,26 +144,87 @@ def _unfilter_diagonals(rows: np.ndarray, kinds: np.ndarray, bpp: int) -> np.nda
     return out[1:, 1:].astype(np.uint8).reshape(h, stride)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) or (H, W, C) uint8/uint16 array."""
-    h, w, depth, ch, idat = _header(data)
-    bpp = ch * depth // 8
-    stride = w * bpp
-    buf = np.frombuffer(zlib.decompress(idat), np.uint8)
-    if buf.size < h * (stride + 1):
-        raise ValueError("PNG image data is truncated")
-    rows = buf[: h * (stride + 1)].reshape(h, stride + 1)
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """(H, 1 + stride) filtered rows -> (H, stride) bytes."""
     kinds, rows = rows[:, 0], rows[:, 1:]
     if kinds.max(initial=0) > FILTER_PAETH:
         raise ValueError(f"unknown PNG row filter {int(kinds.max())}")
     if np.isin(kinds, (FILTER_AVERAGE, FILTER_PAETH)).any():
-        pix = _unfilter_diagonals(rows, kinds, bpp)
-    else:
-        pix = _unfilter_rows(rows, kinds, bpp)
+        return _unfilter_diagonals(rows, kinds, bpp)
+    return _unfilter_rows(rows, kinds, bpp)
+
+
+def _samples(raw: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """(H, stride) unfiltered bytes -> (H, width, channels) samples as
+    stored: uint16 at 16 bits, else uint8 (a 1-, 2- or 4-bit sample is
+    its value, the first one in the byte's high bits)."""
+    h = raw.shape[0]
     if depth == 16:
-        pix = pix.view(">u2").astype(np.uint16)
-    shape = (h, w) if ch == 1 else (h, w, ch)
-    return pix.reshape(shape)
+        pix = raw.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        pix = raw
+    else:
+        bits = np.unpackbits(raw, axis=1).reshape(h, -1, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        pix = (bits * weights).sum(2, dtype=np.uint8)
+    return pix[:, : width * channels].reshape(h, width, channels)
+
+
+def _expand(pix: np.ndarray, ctype: int, depth: int, plte, trns) -> np.ndarray:
+    """(H, W, C) stored samples -> what libpng's ``png_set_expand``
+    gives: palette to RGB(A), gray below 8 bits to 8, a ``tRNS`` colour
+    to an alpha channel."""
+    if ctype == 3:
+        # libpng keeps 256 entries, zeroed past the PLTE chunk's end, and
+        # an alpha of 255 past the tRNS chunk's end
+        table = np.zeros((256, 4), np.uint8)
+        n = min(len(plte) // 3, 256)
+        table[:n, :3] = np.frombuffer(plte[: 3 * n], np.uint8).reshape(n, 3)
+        table[:, 3] = 255
+        if trns is None:
+            return table[pix[..., 0], :3]
+        alpha = np.frombuffer(trns[:256], np.uint8)
+        table[: len(alpha), 3] = alpha
+        return table[pix[..., 0]]
+    alpha = None
+    if trns is not None and ctype in (0, 2):
+        # the colour's samples are 16 bits wide; libpng compares their low
+        # ``depth`` bits (the low 8 at 8 bits)
+        key = np.array(struct.unpack(f">{pix.shape[-1]}H", trns[: 2 * pix.shape[-1]]))
+        key = (key & ((1 << depth) - 1)).astype(pix.dtype)
+        alpha = np.where((pix == key).all(-1, keepdims=True),
+                         0, np.iinfo(pix.dtype).max)
+    if depth < 8:
+        pix = pix * np.uint8(255 // ((1 << depth) - 1))
+    if alpha is not None:
+        pix = np.concatenate([pix, alpha.astype(pix.dtype)], -1)
+    return pix
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) or (H, W, C) uint8/uint16 array, as libpng
+    reads it with ``png_set_expand`` (see the module doc)."""
+    hdr = _header(data)
+    h, w, depth, ctype = hdr["height"], hdr["width"], hdr["depth"], hdr["ctype"]
+    ch = STORED_CHANNELS[ctype]
+    bits = ch * depth
+    bpp = max(1, bits // 8)  # the filters' byte distance
+    buf = np.frombuffer(zlib.decompress(hdr["idat"]), np.uint8)
+    pix = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for y0, x0, dy, dx in (ADAM7 if hdr["interlace"] else ((0, 0, 1, 1),)):
+        if y0 >= h or x0 >= w:
+            continue  # an empty pass has no bytes, not even filter bytes
+        ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
+        stride = -(-(pw * bits) // 8)
+        size = ph * (stride + 1)
+        if buf.size < pos + size:
+            raise ValueError("PNG image data is truncated")
+        rows = _unfilter(buf[pos:pos + size].reshape(ph, stride + 1), bpp)
+        pix[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
+        pos += size
+    pix = _expand(pix, ctype, depth, hdr["plte"], hdr["trns"])
+    return pix[..., 0] if pix.shape[-1] == 1 else pix
 
 
 def _filter(x: np.ndarray, kind: int, bpp: int) -> np.ndarray:

@@ -6,7 +6,11 @@ low-rank ROI features), writing only what the port's readers open:
 
 * ``write_cityscapes_fixture``: camera, timestamp and vehicle files of
   all 30 frames of each snippet; disparity and ``pred_mask`` seg PNGs of
-  the three input frames of target 19 (``gap_len``); the annotated
+  the three input frames of target 19 (``gap_len``), or of every frame
+  a multi-target index opens (``all_targets``); as options, the
+  ``leftImg8bit_sequence`` RGB frames of those frames (``images``),
+  flat cascade disparity PNGs (``cascade``) and monodepth ``.npy``
+  disparities below full resolution (``mono_size``); the annotated
   frame's ``gtFine`` labelIds, labelTrainIds and instanceIds PNGs;
   ``{split}_3d_info.pkl``;
 * ``write_fg_fixture``: the scene tables, depth tables, ROI feature h5
@@ -16,7 +20,10 @@ low-rank ROI features), writing only what the port's readers open:
 * ``write_odom_predictions``: a predicted-odometry h5 (speed, yaw rate
   per future step) keyed ``city/seq/frame/start``;
 * ``write_odom_fixture``: the odometry dataset's ``{split}_3d_info.pkl``
-  tables (``make_odom_table``).
+  tables (``make_odom_table``); ``write_odom_images``: the
+  ``leftImg8bit_sequence`` frames of such a table (``data.load_imgs``);
+* ``write_condensed_feats``: the fg condensed-feats files, copied from
+  the plain ones (``data.use_condensed_feats``).
 
 PNGs go through the port's codec. Tables are pickled pandas frames and
 feature/odometry files HDF5; each writer also returns them in memory
@@ -33,11 +40,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from . import io
+from . import io, png
 from .cityscapes import train_id_to_id_lut
 from .io import PNG_IDS, save_png
 
@@ -159,6 +166,13 @@ def _dump(path: str, text: str) -> None:
         f.write(text)
 
 
+def rgb_frame(seg_ids: np.ndarray) -> np.ndarray:
+    """The JAX fixture's ``leftImg8bit`` content of a labelId map."""
+    sid = seg_ids.astype(np.int32)
+    return np.stack([sid * 7 % 256, sid * 13 % 256, sid * 29 % 256],
+                    axis=-1).astype(np.uint8)
+
+
 def write_cityscapes_fixture(
     root: str,
     split: str = "val",
@@ -168,18 +182,38 @@ def write_cityscapes_fixture(
     seed: int = 0,
     gap_len: int = 9,
     store: Dict[str, Any] = None,
+    all_targets: bool = False,
+    images: bool = False,
+    cascade: bool = False,
+    mono_size: Optional[Tuple[int, int]] = None,
+    disparity_dir: Optional[str] = None,
 ) -> Dict[str, Any]:
     """A miniature Cityscapes tree + ``{split}_3d_info.pkl``, with the
     JAX package's fixture content; PNGs only of the frames
-    ``PCTransformDataset`` opens at ``gap_len`` (and the gt frame).
-    Returns ``store`` (tables and arrays written)."""
+    ``PCTransformDataset`` opens at ``gap_len`` for target 19, or for
+    every target with ``all_targets`` (frames 0 to 29 - gap_len), and the
+    gt frame. Options for the pc data options, each file where the
+    dataset looks for it with ``disparity_dir`` (or without it, in
+    ``disparity_sequence/{split}``): ``images`` the RGB frames,
+    ``cascade`` flat 16-bit cascade disparity PNGs (``disp·256``),
+    ``mono_size`` (h, w) monodepth disparities ``(1, 1, h, w)`` float32
+    (``5.4054 / depth``, JAX's default ``monodepth_factor``) under
+    ``{split}/{city}``. Returns ``store`` (tables and arrays written)."""
     store = store if store is not None else new_store()
     rng = np.random.RandomState(seed)
     cam = make_camera_json(height, width)
     fx = cam["intrinsic"]["fx"]
     baseline = cam["extrinsic"]["baseline"]
     lut = train_id_to_id_lut()
-    png_frames = set((np.array([0, 3, 6]) + 19 - (6 + gap_len)).tolist())
+    if all_targets:
+        png_frames = set(range(30 - gap_len))
+    else:
+        png_frames = set((np.array([0, 3, 6]) + 19 - (6 + gap_len)).tolist())
+    if disparity_dir is None:
+        flat_dir = os.path.join(root, "disparity_sequence", split)
+        mono_dir = flat_dir
+    else:
+        flat_dir, mono_dir = disparity_dir, os.path.join(disparity_dir, split)
     rows = []
     for snip in range(n_snippets):
         seq = f"{snip:06d}"
@@ -207,12 +241,27 @@ def write_cityscapes_fixture(
                 continue
             # disparity: official encoding p = d*256 + 1 (0 = invalid)
             disp = baseline * fx / np.maximum(depths[ind], 0.5)
-            png = (disp * 256 + 1).astype(np.uint16)
-            png[depths[ind] <= 0] = 0
-            save_png(path("disparity_sequence", "disparity.png"), png, **PNG_IDS)
+            code = (disp * 256 + 1).astype(np.uint16)
+            code[depths[ind] <= 0] = 0
+            save_png(path("disparity_sequence", "disparity.png"), code, **PNG_IDS)
             # predicted-seg input (labelId space)
-            save_png(path("seg", "leftImg8bit.png", "pred_mask_"),
-                     lut[segs[ind]], **PNG_IDS)
+            seg_id = lut[segs[ind]]
+            save_png(path("seg", "leftImg8bit.png", "pred_mask_"), seg_id, **PNG_IDS)
+            if images:
+                save_png(path("leftImg8bit_sequence", "leftImg8bit.png"),
+                         rgb_frame(seg_id), **PNG_IDS)
+            if cascade:  # cascade stereo: disparity in pixels, times 256
+                code = np.clip(np.round(disp * 256), 0, 65535).astype(np.uint16)
+                code[depths[ind] <= 0] = 0
+                save_png(os.path.join(flat_dir, f"{name}_leftImg8bit.png"), code,
+                         **PNG_IDS)
+            if mono_size is not None:
+                mh, mw = mono_size
+                sub = depths[ind][np.arange(mh) * height // mh][:, np.arange(mw) * width // mw]
+                out = os.path.join(mono_dir, CITY, f"{name}_leftImg8bit_disp.npy")
+                os.makedirs(os.path.dirname(out), exist_ok=True)
+                np.save(out, (5.405405405405405 / np.maximum(sub, 0.5))[None, None]
+                        .astype(np.float32))
         name = f"{CITY}_{seq}_{frame:06d}"
         gt = os.path.join(root, "gtFine", split, CITY, name)
         save_png(f"{gt}_gtFine_labelIds.png", lut[segs[19]], **PNG_IDS)
@@ -414,6 +463,41 @@ def write_odom_predictions(path: str, rows: List[Dict], starts=(10, 16),
                 steps + noise).astype(np.float32)
     _store_arrays(store, path, arrays)
     return store
+
+
+def write_odom_images(root: str, rows: List[Dict], split: str, height: int,
+                      width: int, seed: int = 0) -> None:
+    """The ``leftImg8bit_sequence`` frames of every row (city, seq, frame)
+    of an odometry table, frames ``frame - 19`` to ``frame + 10``: the
+    JAX fixture's RGB content of a toy street (``make_scene_sequence``
+    from ``seed``), one PNG encoded once and written at every path."""
+    seg = make_scene_sequence(1, height, width, seed=seed)[0][0]
+    data = png.encode_png(rgb_frame(train_id_to_id_lut()[seg]), **PNG_IDS)
+    for r in rows:
+        city, seq, frame = r["city"], r["seq"], int(r["frame"])
+        out = os.path.join(root, "leftImg8bit_sequence", split, city)
+        os.makedirs(out, exist_ok=True)
+        for fr in range(frame - 19, frame + 11):
+            with open(os.path.join(out, f"{city}_{seq}_{fr:06d}_leftImg8bit.png"),
+                      "wb") as f:
+                f.write(data)
+
+
+def write_condensed_feats(root: str, store: Dict[str, Any],
+                          splits=("train", "val")) -> None:
+    """The condensed-feats files of a ``write_fg_fixture`` tree, as the
+    JAX package's own test makes them: ``{split}_condensed_feats.h5`` a
+    copy of the plain feature h5, and the ``feat_ind`` columns of the
+    instance and scene meta tables as
+    ``{split}_{instance,seq}_condensed_feat_info.pkl``."""
+    for split in splits:
+        _store_arrays(store, os.path.join(root, f"{split}_condensed_feats.h5"),
+                      store["arrays"][os.path.join(root, f"{split}_feats.h5")])
+        for kind in ("instance", "seq"):
+            meta = store["tables"][os.path.join(root, f"{split}_{kind}_meta.pkl")]
+            _store_table(store, os.path.join(
+                root, f"{split}_{kind}_condensed_feat_info.pkl"),
+                [{"feat_ind": r["feat_ind"]} for r in meta])
 
 
 class ArrayFile(dict):

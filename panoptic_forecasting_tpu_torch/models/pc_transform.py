@@ -93,10 +93,10 @@ def _inv(a: np.ndarray) -> np.ndarray:
 
 def _matmul(a: np.ndarray, b: np.ndarray, fused: bool) -> np.ndarray:
     """f32 matrix product with the rounding of the JAX package's jitted
-    einsums on the CPU (HIGHEST-precision dots). XLA sums the (4, 4)
-    chain's four products pairwise, each rounded, ((p0 + p1) + (p2 +
-    p3)), and R·K⁻¹'s three in order with fused multiply-adds
-    (``fused``)."""
+    einsums on the CPU (HIGHEST-precision dots): the products summed in
+    order with fused multiply-adds (``fused``: R·K⁻¹'s three, and the
+    (4, 4) chain's four when there is one input frame), or pairwise,
+    each rounded, ((p0 + p1) + (p2 + p3)) (the chain over several)."""
     terms = [a[..., :, k, None] * b[..., k, None, :] for k in range(a.shape[-1])]
     if fused:
         acc = _f32(terms[0])
@@ -114,7 +114,8 @@ def _camera_maps(K, extrinsics, target_T):
     """Per (batch, frame): B = R·K⁻¹ (B, T, 3, 3) and trans (B, T, 3) of
     A = E⁻¹·target_T·E, computed on the host in f32 with the rounding of
     the JAX package's jitted chain on the CPU (``_inv``, ``_matmul``; the
-    contraction order (E⁻¹·target_T)·E of its ``einsum``).
+    contraction order (E⁻¹·target_T)·E of its ``einsum``, whose sums XLA
+    fuses when there is one input frame).
 
     The chain is tiny, and computing it in one place makes the GPU and
     the CPU reproject bit-identically: the last bit of a projected point
@@ -123,7 +124,8 @@ def _camera_maps(K, extrinsics, target_T):
     """
     K, E, T = (_f32(torch.as_tensor(x).detach().to("cpu", torch.float32).numpy())
                for x in (K, extrinsics, target_T))
-    A = _matmul(_matmul(_inv(E)[:, None], T, fused=False), E[:, None], fused=False)
+    one = T.shape[1] == 1
+    A = _matmul(_matmul(_inv(E)[:, None], T, fused=one), E[:, None], fused=one)
     Bm = _matmul(A[..., :3, :3], _inv(K)[:, None], fused=True)
     return (torch.from_numpy(Bm.astype(np.float32)),
             torch.from_numpy(A[..., :3, 3].astype(np.float32)))
@@ -155,9 +157,17 @@ def _reproject_points(depth, K, extrinsics, target_T, height: int,
     v = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
     bc = (slice(None), slice(None), None, None)
 
+    one = depth.shape[1] == 1
+
     def row(i):
-        # x_target = depth * (B @ [u, v, 1]) + trans, one FMA per step
-        bp = _fma(Bm[..., i, 1][bc], v, Bm[..., i, 0][bc] * u) + Bm[..., i, 2][bc]
+        # x_target = depth * (B @ [u, v, 1]) + trans, one FMA per step; for
+        # one input frame XLA rounds the x and y rows' B @ [u, v, 1] at
+        # every product and sum
+        b0, b1, b2 = (Bm[..., i, j][bc] for j in range(3))
+        if one and i < 2:
+            bp = (b0 * u + b1 * v) + b2
+        else:
+            bp = _fma(b1, v, b0 * u) + b2
         return _fma(depth, bp, trans[..., i][bc])
 
     x, y, z = row(0), row(1), row(2)

@@ -88,9 +88,10 @@ def _image(kind, seed=0):
 
 def _row_filters(data: bytes):
     """The filter byte of every row of a PNG file."""
-    h, w, depth, ch, idat = png._header(data)
-    stride = w * ch * depth // 8 + 1
-    raw = zlib.decompress(idat)
+    hdr = png._header(data)
+    h, ch = hdr["height"], png.CHANNELS[hdr["ctype"]]
+    stride = hdr["width"] * ch * hdr["depth"] // 8 + 1
+    raw = zlib.decompress(hdr["idat"])
     return {raw[r * stride] for r in range(h)}
 
 
@@ -155,10 +156,12 @@ def test_png_writes_libpngs_bytes(tmp_path, profile):
 
 
 def test_png_rejects_unsupported_files():
+    # a palette file is read as libpng expands it (RGB), no longer refused
     buf = io.BytesIO()
-    Image.fromarray(_image("gray8")).convert("P").save(buf, format="PNG")
-    with pytest.raises(NotImplementedError, match="colour type 3"):
-        png.decode_png(buf.getvalue())
+    pal = Image.fromarray(_image("gray8")).convert("P")
+    pal.save(buf, format="PNG")
+    np.testing.assert_array_equal(png.decode_png(buf.getvalue()),
+                                  np.array(pal.convert("RGB")))
     with pytest.raises(ValueError, match="not a PNG"):
         png.decode_png(b"GIF89a" + bytes(20))
     with pytest.raises(TypeError):

@@ -1,7 +1,8 @@
 """The port stands alone: every module of ``panoptic_forecasting_tpu_torch``
 imports in a fresh interpreter where ``jax`` cannot be imported, and none
-of them loads the JAX package (not even its host-side numpy modules) or
-Pillow (PNG goes through the port's own codec)."""
+of them loads the JAX package (not even its host-side numpy modules),
+Pillow (PNG goes through the port's own codec) or cv2 (the odometry
+images' resize is the port's own, run here with cv2 blocked)."""
 
 import os
 import subprocess
@@ -12,10 +13,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROBE = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax raises ImportError
+sys.modules["cv2"] = None
+import numpy as np
 import panoptic_forecasting_tpu_torch as port
 names = sorted(m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."))
 for name in names:
     importlib.import_module(name)
+from panoptic_forecasting_tpu_torch.data.odom_data import resize_short_side
+assert resize_short_side(np.zeros((6, 10, 3), np.float32), 3).shape == (3, 5, 3)
 print(json.dumps({"modules": names,
                   "loaded": sorted(k for k, v in sys.modules.items() if v is not None)}))
 """
@@ -43,3 +48,4 @@ def test_port_imports_no_jax_no_jax_package_no_pillow():
     assert not [m for m in loaded if m == "panoptic_forecasting_tpu"
                 or m.startswith("panoptic_forecasting_tpu.")]
     assert not [m for m in loaded if m == "PIL" or m.startswith("PIL.")]
+    assert not [m for m in loaded if m == "cv2" or m.startswith("cv2.")]

@@ -31,7 +31,7 @@ from panoptic_forecasting_tpu.models import reference_import
 from panoptic_forecasting_tpu.models.odom import OdomModel as JaxOdomModel
 from panoptic_forecasting_tpu_torch.cli import export_odom
 from panoptic_forecasting_tpu_torch.core import build_dataset
-from panoptic_forecasting_tpu_torch.data import synthetic
+from panoptic_forecasting_tpu_torch.data import io, synthetic
 from panoptic_forecasting_tpu_torch.models import OdomModel
 from panoptic_forecasting_tpu_torch.models.convert import odom_state_dict_from_jax
 
@@ -155,10 +155,21 @@ def test_odom_dataset_matches_jax(fixtures, variant):
     assert starts == (set(range(6, 30)) if test else set(range(6, 21)))
 
 
-def test_odom_dataset_load_imgs_raises(fixtures):
-    with pytest.raises(NotImplementedError, match="load_imgs"):
-        build_dataset({"task": "odom", "data": {
-            "data_dir": fixtures["port"], "load_imgs": True}}, test=True)
+def test_odom_dataset_load_imgs_raises(fixtures, tmp_path):
+    """``load_imgs`` raises only where JAX's does, without
+    ``cityscapes_dir``; with it each sample carries its frames."""
+    data = {"data_dir": fixtures["port"], "load_imgs": True}
+    with pytest.raises(ValueError, match="cityscapes_dir"):
+        build_dataset({"task": "odom", "data": data}, test=True)
+    cs = str(tmp_path / "cs")
+    for split in ("train", "val"):
+        synthetic.write_odom_images(cs, io.read_table(os.path.join(
+            fixtures["port"], f"{split}_3d_info.pkl")), split, height=8, width=12)
+    cfg = {"task": "odom", "data": dict(data, cityscapes_dir=cs)}
+    want = jax_build_dataset(cfg, test=True).datasets["val"][0]["inputs"]["imgs"]
+    got = build_dataset(cfg, test=True).datasets["val"][0]["inputs"]["imgs"]
+    assert got.shape == (9, 8, 12, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 # ---- the export CLI -----------------------------------------------------------

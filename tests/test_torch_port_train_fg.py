@@ -139,9 +139,22 @@ def test_instance_dataset_matches_jax(roots, expand_train):
             assert {k: v for k, v in a["meta"].items()} == dict(b["meta"])
 
 
-def test_instance_dataset_rejects_condensed_feats(roots):
-    with pytest.raises(NotImplementedError, match="use_condensed_feats"):
-        build_dataset(fg_train_cfg(roots[1], use_condensed_feats=True))
+def test_instance_dataset_rejects_condensed_feats(tmp_path):
+    """``use_condensed_feats`` is read, no longer refused: the track
+    dataset on the condensed copies equals JAX's and its plain self."""
+    root = str(tmp_path / "fg")
+    store = synthetic.write_fg_fixture(root, n_scenes=3, max_instances=3,
+                                       feat_channels=32, feat_hw=7)
+    synthetic.write_condensed_feats(root, store)
+    cfg = fg_train_cfg(root, use_condensed_feats=True)
+    got, want = build_dataset(cfg), jax_build_dataset(cfg)
+    plain = build_dataset(fg_train_cfg(root))
+    for split in ("train", "val"):
+        ds, ref, base = (d.datasets[split] for d in (got, want, plain))
+        assert len(ds) == len(ref) == len(base) > 0
+        for i in range(len(ds)):
+            np.testing.assert_array_equal(ds[i]["inputs"]["feats"], ref[i]["inputs"]["feats"])
+            np.testing.assert_array_equal(ds[i]["inputs"]["feats"], base[i]["inputs"]["feats"])
 
 
 def _jax_grads(model, params, batch):
