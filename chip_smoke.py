@@ -302,8 +302,8 @@ from panoptic_forecasting_tpu_torch.kernels.experimental.minwin import (
     place_minwin, place_minwin_plain,
 )
 from panoptic_forecasting_tpu_torch.kernels.placement import (
-    EMPTY, fold_corners, fold_targets, place_min, place_min_fold,
-    place_min_fold_plain, place_min_plain,
+    EMPTY, fold_corners, fold_targets, place_min, place_min_atomic,
+    place_min_fold, place_min_fold_plain, place_min_plain, place_min_plan,
 )
 from panoptic_forecasting_tpu_torch.kernels.stem import (
     assemble_onehot, onehot_stem_conv, onehot_stem_conv_plain,
@@ -515,6 +515,88 @@ def fold_edge_cases(dev):
           f"{', '.join(cases)}")
 
 
+def offset_copy(x, by):
+    """The same values ``by`` elements past an aligned start."""
+    flat = torch.empty(x.numel() + by, dtype=x.dtype, device=x.device)
+    flat[by:] = x.reshape(-1)
+    return flat[by:].view(x.shape)
+
+
+def k1_edge_cases(dev):
+    """place_min against its plain version on the tile-owned passes' edge
+    shapes: a one-group canvas, a canvas below one tile, one group past
+    whole tiles, N = 0, every entry on one group, every entry in one
+    tile, negative groups and groups >= num_groups (2^31 - 1 and -2^31
+    among them), keys 0 and 2^31 - 2, a stream at a 4-byte storage offset
+    (scalar loads), and more tiles than a shared histogram holds (the
+    counts through the global counters)."""
+    g = torch.Generator().manual_seed(SEED + 8)
+    tile = place_min_plan(1, 2**30)["tile"]
+
+    def randint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=torch.int32)
+
+    def keys(n):
+        k = randint(0, 2**31 - 1, n)
+        k[::9] = 0
+        k[1::9] = 2**31 - 2
+        return k
+
+    ignored = randint(-5 * tile, 5 * tile, 300_000)
+    ignored[::7] = 2**31 - 1
+    ignored[3::7] = -2**31
+    cases = {
+        "one_group_canvas": (randint(-3, 4, 5000), 1),
+        "below_one_tile": (randint(-50, 5050, 20_000), 5000),
+        "one_past_tiles": (randint(-50, 3 * tile + 51, 200_000), 3 * tile + 1),
+        "empty": (torch.zeros(0, dtype=torch.int32), 3 * tile + 1),
+        "one_group": (torch.full((70_001,), 3 * tile, dtype=torch.int32),
+                      3 * tile + 1),
+        "one_tile": (tile + randint(0, tile, 100_000), 4 * tile),
+        "ignored_groups": (ignored, 4 * tile - 3),
+        "global_counts": (randint(0, 2**28, 1_000_003), 2**28),
+    }
+    plans = {}
+    for name, (grp, n_groups) in cases.items():
+        grp, k = grp.to(dev), keys(grp.numel()).to(dev)
+        want = place_min_plain(grp, k, n_groups)
+        runs = [(grp, k)]
+        if name == "one_past_tiles":  # and at a 4-byte storage offset
+            runs.append((offset_copy(grp, 1), offset_copy(k, 1)))
+        for gg, kk in runs:
+            if not torch.equal(place_min(gg, kk, n_groups), want):
+                raise SystemExit(f"K1 place_min edge case {name} differs "
+                                 "from its plain version")
+        plan = place_min_plan(grp.numel(), n_groups)
+        plans[name] = (plan["tiles"], plan["tile"], plan["shared_histogram"])
+    if plans["global_counts"][2] or not plans["one_tile"][2]:
+        raise SystemExit(f"K1 edge cases miss a counting path: {plans}")
+    print(f"[edge] K1 place_min bit-equal on {', '.join(cases)} and "
+          f"one_past_tiles at a 4-byte offset; (tiles, tile, shared "
+          f"histogram) {plans}")
+
+
+def k1_streams(dev, forecast, k3):
+    """place_min's full-size streams: the forecast's z-buffer stream, K3's
+    coherent one, whole warps on one group over K3's canvas (warp_runs), a
+    uniform stream of as many entries over the forecast's canvas, and all
+    of them in one tile of it (one bucket holds the stream)."""
+    f_group, f_key, f_groups = forecast
+    k3_group, k3_key, k3_groups = k3
+    gen = torch.Generator().manual_seed(SEED + 6)
+    runs = torch.randint(0, k3_groups, (k3_group.numel() // 32,),
+                         generator=gen, dtype=torch.int32).repeat_interleave(32)
+    n = f_group.numel()
+    uniform = torch.randint(0, f_groups, (n,), generator=gen, dtype=torch.int32)
+    tile = place_min_plan(n, f_groups)["tile"]
+    one_tile = 5 * tile + torch.randint(0, tile, (n,), generator=gen,
+                                        dtype=torch.int32)
+    return {"forecast_stream": forecast, "k3_stream": k3,
+            "warp_runs": (runs.to(dev), k3_key, k3_groups),
+            "uniform": (uniform.to(dev), f_key, f_groups),
+            "one_tile": (one_tile.to(dev), f_key, f_groups)}
+
+
 def edge_cases(dev):
     """Both kernels against their plain versions off the main path's
     shapes: K1 with ignored groups (negative, >= num_groups) and key 0;
@@ -532,6 +614,7 @@ def edge_cases(dev):
         if not torch.equal(place_min(group, key, n_groups),
                            place_min_plain(group, key, n_groups)):
             raise SystemExit(f"K1 edge case num_groups={n_groups} differs")
+    k1_edge_cases(dev)
     fold_edge_cases(dev)
     worst = 0.0
     shapes = ((2, 3, 34, 66, 11, True, False), (1, 2, 16, 48, 5, True, False),
@@ -655,7 +738,7 @@ def check_output(out, height: int, width: int):
     return float((pan >= 11000).float().mean())
 
 
-COUNTED = (place_min_fold, place_min, onehot_stem_conv, place_minwin,
+COUNTED = (place_min_fold, place_min, place_min_atomic, onehot_stem_conv, place_minwin,
            *(getattr(strided_load, p) for p in strided_load.PROBES))
 
 
@@ -801,8 +884,9 @@ def k3_checks(group, key, num_groups, pk, forecast):
 
 def k4_checks(dev):
     """Phase 8: every K4 probe bit-equal to its plain version, on the
-    16-byte path and on the scalar one (C % 4 == 2, an input at storage
-    offset 1). Returns the max abs difference."""
+    16-byte path and on the scalar one (C % 4 == 2, C % 8 == 4 for
+    strided_ref, an input at storage offset 1), and at (8192, 8192).
+    Returns the max abs difference."""
     g = torch.Generator().manual_seed(SEED + 4)
 
     def offset(x, by):  # the same values `by` floats past an aligned start
@@ -815,7 +899,11 @@ def k4_checks(dev):
           "(3, 3002)": torch.randn(3, 3002, generator=g),  # C % 4 == 2
           "(8, 2048) at offset 1": offset(torch.randn(8, 2048, generator=g), 1),
           "(5, 1026) at offset 4": offset(torch.randn(5, 1026, generator=g), 4),
-          "(64, 4096) at offset 4": offset(torch.randn(64, 4096, generator=g), 4)}
+          "(64, 4096) at offset 4": offset(torch.randn(64, 4096, generator=g), 4),
+          "(6, 1020)": torch.randn(6, 1020, generator=g),  # C % 8 == 4
+          str(prof_strided_load.LARGE): torch.randn(
+              prof_strided_load.LARGE, device=dev,
+              generator=torch.Generator(device=dev).manual_seed(SEED + 4))}
     err = 0.0
     for name in strided_load.PROBES:
         probe = getattr(strided_load, name)
@@ -3568,14 +3656,27 @@ def main() -> int:
     print(f"[K1] place_min_fold {group.numel()} entries ({fold_tgt.numel()} "
           f"targets) -> {T_IN}x{H}x{W}: bit-equal, "
           f"{int((k1_fold != EMPTY).sum())} pixels touched")
-    k1 = place_min(group, key, num_groups)
-    k1_ref = place_min_plain(group, key, num_groups)
-    torch.cuda.synchronize()
-    k1_err = int((k1.long() - k1_ref.long()).abs().max())
-    if not torch.equal(k1, k1_ref):
-        raise SystemExit(f"K1 differs from its plain version: {k1_err}")
-    print(f"[K1] place_min {group.numel()} entries -> {num_groups} groups: "
-          f"bit-equal, {int((k1 != EMPTY).sum())} groups touched")
+    k1_in = k1_streams(dev, (group, key, num_groups), k3_stream(dev)[:3])
+    k1_err = 0
+    for name, (g_s, k_s, n_s) in k1_in.items():
+        k1 = place_min(g_s, k_s, n_s)
+        k1_ref = place_min_plain(g_s, k_s, n_s)
+        k1_atomic = place_min_atomic(g_s, k_s, n_s)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, int((k1.long() - k1_ref.long()).abs().max()))
+        if not (torch.equal(k1, k1_ref) and torch.equal(k1_atomic, k1_ref)):
+            raise SystemExit(f"K1 place_min on {name} differs from its plain "
+                             f"version: {k1_err}")
+        plan = place_min_plan(g_s.numel(), n_s)
+        print(f"[K1] place_min {name}: {g_s.numel()} entries -> {n_s} groups "
+              f"({plan['tiles']} tiles of {plan['tile']}): bit-equal (and the "
+              f"earlier kernel), {int((k1 != EMPTY).sum())} groups touched")
+    skew = {"tiled_ms": time_ms(lambda: place_min(*k1_in["one_tile"])),
+            "atomic_ms": time_ms(lambda: place_min_atomic(*k1_in["one_tile"]))}
+    print(f"[time] place_min, every entry of {group.numel()} in one tile: "
+          f"{skew['tiled_ms']:.4f} ms (CUDA events), the earlier kernel "
+          f"{skew['atomic_ms']:.4f} ms")
+    del k1, k1_ref, k1_atomic, k1_in  # phase 11 makes the streams again
 
     k2_edge_err = edge_cases(dev)
 
@@ -3653,6 +3754,7 @@ def main() -> int:
         "layer_earlier_device": device_ms(
             lambda: decode_canvas(fold_earlier(), torch.int32)),
         "k1": time_ms(lambda: place_min(group, key, num_groups)),
+        "k1_atomic": time_ms(lambda: place_min_atomic(group, key, num_groups)),
         "k1_plain": time_ms(lambda: place_min_plain(group, key, num_groups)),
         "k1_lib": time_ms(lambda: torch.scatter_reduce(filled, 0, g64, key, "amin")),
         "k2": time_ms(lambda: onehot_stem_conv(seg, dep, kern, bias, num_classes=11)),
@@ -3691,24 +3793,25 @@ def main() -> int:
     k3_launches, k4_launches = entry_points()
 
     # ---- 11. K3 and K4 timings ---------------------------------------------------
-    # K3 against K1 on three streams: K3's own (coherent: nearly every
-    # entry lands in its block's window), the forecast's z-buffer stream
-    # (no window fits) and whole warps on one group (no window fits; runs
-    # of equal groups). Every CUDA-event time before any profiled one.
-    runs = torch.randint(0, k3_groups, (k3_group.numel() // 32,),
-                         generator=torch.Generator().manual_seed(SEED + 6),
-                         dtype=torch.int32).repeat_interleave(32).to(dev)
+    # K3 against K1 (and the earlier kernel) on four streams: K3's own
+    # (coherent: nearly every entry lands in its block's window), the
+    # forecast's z-buffer stream (no window fits), whole warps on one group
+    # (no window fits; runs of equal groups) and a uniform stream over the
+    # forecast's canvas. Every CUDA-event time before any profiled one.
+    k1_in = k1_streams(dev, (group, key, num_groups),
+                       (k3_group, k3_key, k3_groups))
     calls = {}
-    for name, (g_s, k_s, n_s, kw) in {
-            "k3_stream": (k3_group, k3_key, k3_groups, pk),
-            "forecast_stream": (group, key, num_groups, {}),
-            "warp_runs": (runs, k3_key, k3_groups, {})}.items():
+    for name in ("k3_stream", "forecast_stream", "warp_runs", "uniform"):
+        g_s, k_s, n_s = k1_in[name]
+        kw = pk if name == "k3_stream" else {}
         calls[name] = (
             lambda g_s=g_s, k_s=k_s, n_s=n_s, kw=kw: place_minwin(
                 g_s, k_s, num_groups=n_s, **kw),
-            lambda g_s=g_s, k_s=k_s, n_s=n_s: place_min(g_s, k_s, n_s))
-    k3_streams = {name: {"k3_ms": time_ms(k3_call), "k1_ms": time_ms(k1_call)}
-                  for name, (k3_call, k1_call) in calls.items()}
+            lambda g_s=g_s, k_s=k_s, n_s=n_s: place_min(g_s, k_s, n_s),
+            lambda g_s=g_s, k_s=k_s, n_s=n_s: place_min_atomic(g_s, k_s, n_s))
+    k3_streams = {name: {"k3_ms": time_ms(k3_call), "k1_ms": time_ms(k1_call),
+                         "k1_atomic_ms": time_ms(atomic_call)}
+                  for name, (k3_call, k1_call, atomic_call) in calls.items()}
     k3_g64 = k3_group.long()
     k3_filled = torch.full((k3_groups,), EMPTY, dtype=torch.int32, device=dev)
     times.update({
@@ -3718,13 +3821,16 @@ def main() -> int:
         "k3_lib": time_ms(lambda: torch.scatter_reduce(
             k3_filled, 0, k3_g64, k3_key, "amin")),
         "k1_device": device_ms(lambda: place_min(group, key, num_groups)),
+        "k1_atomic_device": device_ms(
+            lambda: place_min_atomic(group, key, num_groups)),
         "k2_device": device_ms(lambda: onehot_stem_conv(
             seg, dep, kern, bias, num_classes=11)),
         "k3_device": device_ms(calls["k3_stream"][0]),
     })
-    for name, (k3_call, k1_call) in calls.items():
+    for name, (k3_call, k1_call, atomic_call) in calls.items():
         k3_streams[name].update(k3_device_ms=device_ms(k3_call),
-                                k1_device_ms=device_ms(k1_call))
+                                k1_device_ms=device_ms(k1_call),
+                                k1_atomic_device_ms=device_ms(atomic_call))
         print(f"[time] {name}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in k3_streams[name].items()))
     x4 = torch.arange(prof_strided_load.ROWS * prof_strided_load.COLS,
@@ -3740,8 +3846,24 @@ def main() -> int:
             lambda: x4[:, start::2].contiguous(), 200, 10)
         times[f"k4_{name}_lib_device"] = device_ms(
             lambda: x4[:, start::2].contiguous())
+    # K4 where the bytes bound it, beside the launch floor (a one-element
+    # zero_, the least a launch takes on the device)
+    xl = torch.randn(prof_strided_load.LARGE, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED + 9))
+    one = torch.zeros(1, device=dev)
+    times["launch_floor"] = time_ms(one.zero_, 200, 10)
+    times["launch_floor_device"] = device_ms(one.zero_)
+    for name, probe, start in prof_strided_load.CASES:
+        times[f"k4_{name}_large"] = time_ms(lambda: probe(xl, start), 50, 5)
+        times[f"k4_{name}_large_device"] = device_ms(lambda: probe(xl, start), 20)
+        times[f"k4_{name}_large_lib"] = time_ms(
+            lambda: xl[:, start::2].contiguous(), 50, 5)
+        times[f"k4_{name}_large_lib_device"] = device_ms(
+            lambda: xl[:, start::2].contiguous(), 20)
+    del xl
     for k, v in times.items():
-        if k.startswith(("k3", "k4")) or k in ("k1_device", "k2_device"):
+        if k.startswith(("k3", "k4", "launch_floor")) or k in (
+                "k1_device", "k1_atomic_device", "k2_device"):
             print(f"[time] {k} {v:.4f} ms")
 
     # ---- 12. the serving CLI, counted; 13. serve and score --------------------
@@ -3790,8 +3912,14 @@ def main() -> int:
          "ms": times["k1"], "plain_ms": times["k1_plain"],
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": times["k1_lib"],
          "device_ms": times["k1_device"],
-         "note": "generic canvas, timed on the forecast stream; launches "
-                 "counted on scripts/prof_minwin.py (off the forecast path)"},
+         "earlier_ms": times["k1_atomic"],
+         "earlier_device_ms": times["k1_atomic_device"],
+         "streams": k3_streams, "one_tile": skew,
+         "note": "generic canvas, tile-owned (count, partition, place), "
+                 "timed on the forecast stream; earlier_ms: the earlier kernel "
+                 "(EMPTY fill + one L2 atomicMin an entry) in the same run; "
+                 "launches: calls of the entry point, counted on "
+                 "scripts/prof_minwin.py (off the forecast path)"},
         {"name": "onehot_stem_conv", "route": "cuda",
          "source": "panoptic_forecasting_tpu_torch/csrc/stem.cu",
          "replaces": "panoptic_forecasting_tpu/kernels/stem.py:180",
@@ -3822,6 +3950,8 @@ def main() -> int:
                  "it); earlier_ms: the previous kernel is no longer in the "
                  "tree; its time is in PERF.md"})
     k4_bound, k4_by = bound_ms(x4.numel() * 4 + x4.numel() // 2 * 4, 0)
+    large_elems = prof_strided_load.LARGE[0] * prof_strided_load.LARGE[1]
+    k4_large_bound, _ = bound_ms(large_elems * 4 + large_elems // 2 * 4, 0)
     for name in strided_load.PROBES:
         kernels.append(
             {"name": name, "route": "cuda",
@@ -3833,14 +3963,20 @@ def main() -> int:
              "library_ms": times[f"k4_{name}_lib"],
              "device_ms": times[f"k4_{name}_device"],
              "library_device_ms": times[f"k4_{name}_lib_device"],
-             **({} if name == "strided_ref" else
-                {"earlier_ms": None, "earlier_device_ms": None}),
+             "large": {"shape": list(prof_strided_load.LARGE),
+                       "ms": times[f"k4_{name}_large"],
+                       "device_ms": times[f"k4_{name}_large_device"],
+                       "library_ms": times[f"k4_{name}_large_lib"],
+                       "library_device_ms": times[f"k4_{name}_large_lib_device"],
+                       "bound_ms": k4_large_bound},
+             "launch_floor_ms": times["launch_floor"],
+             "launch_floor_device_ms": times["launch_floor_device"],
+             "earlier_ms": None, "earlier_device_ms": None,
              "note": f"library call x[:, {k4_start[name]}::2].contiguous(), "
                      "the plain version's own call; at 98,304 bytes a "
-                     "launch dominates"
-                     + ("" if name == "strided_ref" else
-                        "; earlier_ms: the previous kernel is no longer in "
-                        "the tree; its time is in PERF.md")})
+                     "launch dominates, at (8192, 8192) the bytes (large); "
+                     "earlier_ms: the previous kernel is no longer in the "
+                     "tree; its time is in PERF.md"})
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "cli": {

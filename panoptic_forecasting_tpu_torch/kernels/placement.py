@@ -5,8 +5,12 @@ place_sorted``. The TPU kernel needs its stream sorted by (group, key);
 min does not depend on order, so these take the stream as it comes. Two
 entry points, both in ``csrc/placement.cu``:
 
-* ``place_min``: the generic canvas, one ``atomicMin`` per entry into an
-  EMPTY-filled (num_groups,) canvas (K3's entry point compares against it);
+* ``place_min``: the generic (num_groups,) canvas of any size, tile-owned:
+  the canvas is cut into tiles that fit in shared memory, the stream is
+  counted and partitioned into per-tile buckets, and one CTA per tile
+  places its bucket in shared memory and writes its tile once (K3's
+  entry point compares against it). ``place_min_plan`` is the host's plan
+  of those passes;
 * ``place_min_fold``: the forecast path's placement, fused with the
   packed z-buffer's corner fold: each entry of the (batch, corner plane,
   pixel) stream takes the min at its <= 4 pixels of a one-plane
@@ -30,9 +34,58 @@ EMPTY = 0x7FFFFFFF  # untouched group; a key of 0 is a valid key
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
-    "place_min": (_P, _P, _I64, _P, _I64, _P),
+    "place_min": (_P, _P, _I64, _P, _I64, _INT, _INT, _I64, _P, _P, _P),
+    "place_min_atomic": (_P, _P, _I64, _P, _I64, _P),
     "place_min_fold": (_P, _P, _I64, _P, _INT, _INT, _INT, _P),
 }
+
+# place_min's passes (csrc/placement.cu): tiles of 2^TILE_SHIFT groups, a
+# 64 KB shared-memory window each, so that three place CTAs fit an SM and
+# one's fill and write overlap another's atomics; at most HIST_TILES tiles
+# a partition CTA sorts locally (kHistMax; past it the entries go
+# straight to the global cursors); at most COUNT_CTAS count CTAs (2 an SM
+# of 132); PART_CHUNK = kPartThreads x kPartSlots entries a partition CTA;
+# PLACE_CHUNK bucket entries a place CTA takes (kPlaceChunk): a longer
+# (hot) bucket is placed a chunk a CTA, by at most 2 N / PLACE_CHUNK CTAs
+# after the tiles' own.
+TILE_SHIFT = 14
+MIN_TILE_SHIFT, MAX_TILE_SHIFT = 2, 15
+HIST_TILES = 8192
+COUNT_CTAS = 132 * 2
+PART_CHUNK = 256 * 16
+PLACE_CHUNK = 16384
+
+
+def place_min_plan(n: int, num_groups: int,
+                   tile_shift: int = TILE_SHIFT) -> dict:
+    """The host's plan of ``place_min``'s passes for N entries over
+    ``num_groups`` groups: tiles of 2^shift groups (the smallest power of
+    two >= num_groups, at least 4, when that is below 2^tile_shift), the
+    tile count and the last tile's length, whether the counts go through
+    a shared histogram, the scratch sizes (bucket entries of 8 bytes and
+    64-bit counters: a cursor per tile, the ticket, the hot tiles' chunk
+    prefix) and each pass's grid (the place pass's an upper bound: its
+    CTAs past the chunks the hot buckets need return at once). N = 0
+    launches only the place pass: every tile all EMPTY."""
+    if not 0 < num_groups < 2**31 or n < 0:
+        raise ValueError(f"need 0 < num_groups < 2^31 and n >= 0, got "
+                         f"num_groups={num_groups} n={n}")
+    if not MIN_TILE_SHIFT <= tile_shift <= MAX_TILE_SHIFT:
+        raise ValueError(f"tile_shift {tile_shift} outside "
+                         f"[{MIN_TILE_SHIFT}, {MAX_TILE_SHIFT}]")
+    shift = min(tile_shift, max(MIN_TILE_SHIFT, (num_groups - 1).bit_length()))
+    tile = 1 << shift
+    tiles = -(-num_groups // tile)
+    return {
+        "tile_shift": shift, "tile": tile, "tiles": tiles,
+        "last_tile": num_groups - (tiles - 1) * tile,
+        "shared_histogram": tiles <= HIST_TILES,
+        "bucket_entries": n, "counters": 2 * tiles + 2,
+        "count_ctas": min(-(-n // PART_CHUNK), COUNT_CTAS),
+        "part_ctas": -(-n // PART_CHUNK),
+        "place_ctas": tiles + 2 * (n // PLACE_CHUNK),
+        "window_bytes": 4 * tile,
+    }
 
 
 def place_min_plain(group: torch.Tensor, key: torch.Tensor,
@@ -65,8 +118,10 @@ def place_min(group: torch.Tensor, key: torch.Tensor,
     """(num_groups,) int32: per-group min key, EMPTY where no entry lands.
 
     ``group``/``key``: (N,) int32 in any order; entries whose group lies
-    outside [0, num_groups) are ignored. CUDA tensors run the CUDA kernel
-    (and count a launch); CPU tensors run ``place_min_plain``.
+    outside [0, num_groups) are ignored. CUDA tensors run the tile-owned
+    CUDA passes of ``place_min_plan`` (a memset and up to three kernels;
+    ``place_min.launches`` counts calls of this entry point, not CUDA
+    launches); CPU tensors run ``place_min_plain``.
     """
     _check(group, key, num_groups)
     if group.device.type == "cpu":
@@ -75,15 +130,44 @@ def place_min(group: torch.Tensor, key: torch.Tensor,
         raise ValueError(f"unsupported device {group.device}")
     group = group.contiguous()
     key = key.contiguous()
-    canvas = torch.empty((num_groups,), dtype=torch.int32, device=group.device)
+    n = group.numel()
+    plan = place_min_plan(n, num_groups)
+    dev = group.device
+    canvas = torch.empty((num_groups,), dtype=torch.int32, device=dev)
+    bucket = torch.empty((plan["bucket_entries"],), dtype=torch.int64,
+                         device=dev)
+    counters = torch.empty((plan["counters"],), dtype=torch.int64, device=dev)
     lib = build.load("placement", _SIGNATURES)
-    build.launch(lib.place_min, group.device, group.data_ptr(),
-                 key.data_ptr(), group.numel(), canvas.data_ptr(), num_groups)
+    build.launch(lib.place_min, dev, group.data_ptr(), key.data_ptr(), n,
+                 canvas.data_ptr(), num_groups, plan["tile_shift"],
+                 plan["count_ctas"], plan["part_ctas"], bucket.data_ptr(),
+                 counters.data_ptr())
     place_min.launches += 1
     return canvas
 
 
 place_min.launches = 0
+
+
+def place_min_atomic(group: torch.Tensor, key: torch.Tensor,
+                     num_groups: int) -> torch.Tensor:
+    """``place_min`` by the earlier kernel: an EMPTY fill, then one L2
+    ``atomicMin`` per entry; kept to be timed beside the tile-owned
+    passes. CUDA tensors only."""
+    _check(group, key, num_groups)
+    if group.device.type != "cuda":
+        raise ValueError(f"place_min_atomic runs on CUDA, not {group.device}")
+    group = group.contiguous()
+    key = key.contiguous()
+    canvas = torch.empty((num_groups,), dtype=torch.int32, device=group.device)
+    lib = build.load("placement", _SIGNATURES)
+    build.launch(lib.place_min_atomic, group.device, group.data_ptr(),
+                 key.data_ptr(), group.numel(), canvas.data_ptr(), num_groups)
+    place_min_atomic.launches += 1
+    return canvas
+
+
+place_min_atomic.launches = 0
 
 
 def _shift2(c: torch.Tensor, dv: int, du: int) -> torch.Tensor:

@@ -3,15 +3,17 @@
 Counterpart of the three Pallas probe bodies of
 ``scripts/prof_strided_load.py`` (``k_strided_ref``, ``k_strided_val``,
 ``k_dyn_row_strided``). Each is a hand-written CUDA kernel in
-``csrc/strided_load.cu`` that probes one access pattern: a stride-2 read
-from global memory (``strided_ref``), the value loaded whole with one
-16-byte load per four input floats and its kept lanes stored from
+``csrc/strided_load.cu`` that probes one access pattern: a read straight
+from global memory, two 16-byte loads and one 16-byte store a thread
+with rows from the grid (``strided_ref``), the value loaded whole with
+one 16-byte load per four input floats and its kept lanes stored from
 registers (``strided_val``), and the same vector loads with the row index
 taken in a runtime grid-stride loop (``dyn_row_strided``, the fused stem
 kernel's pattern). Inputs that are not 16-byte aligned or have
-C % 4 == 2 take a scalar path inside the same kernels. For a CUDA tensor
-each wrapper launches its kernel once and counts it; for a CPU tensor it
-runs ``strided_plain``, ``x[:, start::2]`` in plain PyTorch.
+C % 4 == 2 (C % 8 != 0 for ``strided_ref``) take a scalar path inside the
+same kernels. For a CUDA tensor each wrapper launches its kernel once and
+counts it; for a CPU tensor it runs ``strided_plain``, ``x[:, start::2]``
+in plain PyTorch.
 """
 
 from __future__ import annotations

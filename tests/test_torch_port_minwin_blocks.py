@@ -21,7 +21,7 @@ import torch
 from panoptic_forecasting_tpu.kernels.experimental.minwin import (
     place_minwin as jax_place_minwin,
 )
-from panoptic_forecasting_tpu_torch.kernels import build, strided_load
+from panoptic_forecasting_tpu_torch.kernels import build, placement, strided_load
 from panoptic_forecasting_tpu_torch.kernels.experimental import minwin
 from panoptic_forecasting_tpu_torch.kernels.experimental.minwin import (
     minwin_block_chunks,
@@ -131,7 +131,8 @@ def _c_params(src: str, name: str):
 
 @pytest.mark.parametrize("source,signatures", [
     ("minwin", minwin._SIGNATURES), ("strided_load", strided_load._SIGNATURES),
-], ids=["minwin", "strided_load"])
+    ("placement", placement._SIGNATURES),
+], ids=["minwin", "strided_load", "placement"])
 def test_c_entry_points_match_signatures(source, signatures):
     """Every function the wrapper binds is an extern "C" entry of its
     source, with as many parameters as ctypes passes (the stream last)."""

@@ -97,3 +97,16 @@ def test_entry_point_cpu(capsys):
     assert prof_strided_load.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out == [f"{name} OK" for name in PROBES] + ["DONE"]
+
+
+def test_entry_point_cpu_at_other_shapes(capsys):
+    """--rows/--cols: the probes at C % 8 == 4 (strided_ref's scalar path
+    on the card); the byte bound of the (8192, 8192) probe, 402.7 MB at
+    3.35 TB/s."""
+    assert prof_strided_load.main(["--device", "cpu", "--rows", "6",
+                                   "--cols", "1020"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out == [f"{name} OK" for name in PROBES] + ["DONE"]
+    assert prof_strided_load.bound_ms(*prof_strided_load.LARGE) == pytest.approx(
+        8192 * 8192 * 6 / 3.35e12 * 1e3)
+    assert round(prof_strided_load.bound_ms(*prof_strided_load.LARGE), 4) == 0.1202
