@@ -32,9 +32,15 @@ Phases (any failure exits non-zero):
   1. build the four CUDA sources from csrc/ with nvcc (in parallel);
   2. K1 on a full-size stream from a real reprojection: the forecast
      path's fused placement + corner fold (place_min_fold) and the
-     generic place_min, each bit-equal to its plain version; edge
-     cases (B = 2, ceil corners in the last column and row, ignored
-     groups, key 0, N = 0, every entry on one pixel);
+     generic place_min, each bit-equal to its plain version; place_min
+     also on K3's coherent stream, whole warps on one group, a uniform
+     stream over the forecast's canvas and all of it in one tile (timed:
+     one bucket holds the stream), with each stream's largest buckets;
+     edge cases (B = 2, ceil corners in the last column and row, ignored
+     groups, key 0, N = 0, every entry on one pixel; for place_min a
+     one-group canvas, one below a tile, one group past whole tiles,
+     every entry on one group or in one tile, keys 0 and 2^31 - 2, a
+     stream at a 4-byte offset, more tiles than a shared histogram);
   3. K2 (onehot_stem_conv) against its plain version at (1,3,1024,2048)
      and at edge shapes (ragged tiles, H = 2, W not a multiple of 4, a
      misaligned input, batched, no depth, other C, ids outside [0, C)):
@@ -58,8 +64,9 @@ Phases (any failure exits non-zero):
      coherent streams at blocks of 512, 2048, 8192 and 32768 (four tiles
      a CTA), a block of 518 and a misaligned copy (scalar loads));
   8. the three K4 probes (strided_load) bit-equal to their plain versions
-     on arange(8·2048), a seeded random (64, 4096), C % 4 == 2 and inputs
-     at storage offsets 1 and 4, both lane offsets;
+     on arange(8·2048), a seeded random (64, 4096), C % 4 == 2, C % 8 ==
+     4, inputs at storage offsets 1 and 4 and (8192, 8192), both lane
+     offsets;
   9. the exact z-buffer through PCTransformModel at 1024x2048, with
      panoptic ids (>= 11000) and with an RGB payload, timed, sort equal
      to scatter; GPU against CPU at 256x512, bit-equal;
@@ -68,8 +75,10 @@ Phases (any failure exits non-zero):
      just before each and read just after: each kernel (and the generic
      place_min, which prof_minwin compares against) must have launched;
  11. timings of K3 (its whole call: canvas and overflow from one launch)
-     and K4 (kernels, plain versions, library calls), K3 beside K1 on
-     three streams, and the device time from torch.profiler
+     and K4 (kernels, plain versions, library calls; K4 also at (8192,
+     8192), beside the launch floor of a one-element zero_), K3 beside K1
+     on four streams with place_min's passes one by one, and the device
+     time from torch.profiler
      (``device_ms``: CUDA events around back-to-back calls of a small
      kernel time the host) of each kernel and of each K4 library call;
  12. the serving CLI (``cli/forecast_fused.py::run``) on a 1024x2048
@@ -302,8 +311,8 @@ from panoptic_forecasting_tpu_torch.kernels.experimental.minwin import (
     place_minwin, place_minwin_plain,
 )
 from panoptic_forecasting_tpu_torch.kernels.placement import (
-    EMPTY, fold_corners, fold_targets, place_min, place_min_atomic,
-    place_min_fold, place_min_fold_plain, place_min_plain, place_min_plan,
+    EMPTY, fold_corners, fold_targets, place_min, place_min_fold,
+    place_min_fold_plain, place_min_plain, place_min_plan,
 )
 from panoptic_forecasting_tpu_torch.kernels.stem import (
     assemble_onehot, onehot_stem_conv, onehot_stem_conv_plain,
@@ -738,7 +747,7 @@ def check_output(out, height: int, width: int):
     return float((pan >= 11000).float().mean())
 
 
-COUNTED = (place_min_fold, place_min, place_min_atomic, onehot_stem_conv, place_minwin,
+COUNTED = (place_min_fold, place_min, onehot_stem_conv, place_minwin,
            *(getattr(strided_load, p) for p in strided_load.PROBES))
 
 
@@ -889,10 +898,8 @@ def k4_checks(dev):
     Returns the max abs difference."""
     g = torch.Generator().manual_seed(SEED + 4)
 
-    def offset(x, by):  # the same values `by` floats past an aligned start
-        flat = torch.empty(x.numel() + by, dtype=x.dtype, device=dev)
-        flat[by:] = x.reshape(-1).to(dev)
-        return flat[by:].view(x.shape)
+    def offset(x, by):
+        return offset_copy(x.to(dev), by)
 
     xs = {"(8, 2048)": torch.arange(8 * 2048, dtype=torch.float32).reshape(8, 2048),
           "(64, 4096)": torch.randn(64, 4096, generator=g),
@@ -3661,22 +3668,23 @@ def main() -> int:
     for name, (g_s, k_s, n_s) in k1_in.items():
         k1 = place_min(g_s, k_s, n_s)
         k1_ref = place_min_plain(g_s, k_s, n_s)
-        k1_atomic = place_min_atomic(g_s, k_s, n_s)
         torch.cuda.synchronize()
         k1_err = max(k1_err, int((k1.long() - k1_ref.long()).abs().max()))
-        if not (torch.equal(k1, k1_ref) and torch.equal(k1_atomic, k1_ref)):
+        if not torch.equal(k1, k1_ref):
             raise SystemExit(f"K1 place_min on {name} differs from its plain "
                              f"version: {k1_err}")
         plan = place_min_plan(g_s.numel(), n_s)
+        kept = g_s[(g_s >= 0) & (g_s < n_s)]
+        buckets = torch.bincount(kept >> plan["tile_shift"], minlength=plan["tiles"])
         print(f"[K1] place_min {name}: {g_s.numel()} entries -> {n_s} groups "
-              f"({plan['tiles']} tiles of {plan['tile']}): bit-equal (and the "
-              f"earlier kernel), {int((k1 != EMPTY).sum())} groups touched")
-    skew = {"tiled_ms": time_ms(lambda: place_min(*k1_in["one_tile"])),
-            "atomic_ms": time_ms(lambda: place_min_atomic(*k1_in["one_tile"]))}
+              f"({plan['tiles']} tiles of {plan['tile']}): bit-equal, "
+              f"{int((k1 != EMPTY).sum())} groups touched; largest buckets "
+              f"{buckets.topk(4).values.tolist()}, "
+              f"{int((buckets > 0).sum())} tiles touched")
+    one_tile_ms = time_ms(lambda: place_min(*k1_in["one_tile"]))
     print(f"[time] place_min, every entry of {group.numel()} in one tile: "
-          f"{skew['tiled_ms']:.4f} ms (CUDA events), the earlier kernel "
-          f"{skew['atomic_ms']:.4f} ms")
-    del k1, k1_ref, k1_atomic, k1_in  # phase 11 makes the streams again
+          f"{one_tile_ms:.4f} ms (CUDA events)")
+    del k1, k1_ref, k1_in  # phase 11 makes the streams again
 
     k2_edge_err = edge_cases(dev)
 
@@ -3754,7 +3762,6 @@ def main() -> int:
         "layer_earlier_device": device_ms(
             lambda: decode_canvas(fold_earlier(), torch.int32)),
         "k1": time_ms(lambda: place_min(group, key, num_groups)),
-        "k1_atomic": time_ms(lambda: place_min_atomic(group, key, num_groups)),
         "k1_plain": time_ms(lambda: place_min_plain(group, key, num_groups)),
         "k1_lib": time_ms(lambda: torch.scatter_reduce(filled, 0, g64, key, "amin")),
         "k2": time_ms(lambda: onehot_stem_conv(seg, dep, kern, bias, num_classes=11)),
@@ -3793,7 +3800,7 @@ def main() -> int:
     k3_launches, k4_launches = entry_points()
 
     # ---- 11. K3 and K4 timings ---------------------------------------------------
-    # K3 against K1 (and the earlier kernel) on four streams: K3's own
+    # K3 against K1 on four streams: K3's own
     # (coherent: nearly every entry lands in its block's window), the
     # forecast's z-buffer stream (no window fits), whole warps on one group
     # (no window fits; runs of equal groups) and a uniform stream over the
@@ -3807,11 +3814,9 @@ def main() -> int:
         calls[name] = (
             lambda g_s=g_s, k_s=k_s, n_s=n_s, kw=kw: place_minwin(
                 g_s, k_s, num_groups=n_s, **kw),
-            lambda g_s=g_s, k_s=k_s, n_s=n_s: place_min(g_s, k_s, n_s),
-            lambda g_s=g_s, k_s=k_s, n_s=n_s: place_min_atomic(g_s, k_s, n_s))
-    k3_streams = {name: {"k3_ms": time_ms(k3_call), "k1_ms": time_ms(k1_call),
-                         "k1_atomic_ms": time_ms(atomic_call)}
-                  for name, (k3_call, k1_call, atomic_call) in calls.items()}
+            lambda g_s=g_s, k_s=k_s, n_s=n_s: place_min(g_s, k_s, n_s))
+    k3_streams = {name: {"k3_ms": time_ms(k3_call), "k1_ms": time_ms(k1_call)}
+                  for name, (k3_call, k1_call) in calls.items()}
     k3_g64 = k3_group.long()
     k3_filled = torch.full((k3_groups,), EMPTY, dtype=torch.int32, device=dev)
     times.update({
@@ -3821,18 +3826,22 @@ def main() -> int:
         "k3_lib": time_ms(lambda: torch.scatter_reduce(
             k3_filled, 0, k3_g64, k3_key, "amin")),
         "k1_device": device_ms(lambda: place_min(group, key, num_groups)),
-        "k1_atomic_device": device_ms(
-            lambda: place_min_atomic(group, key, num_groups)),
         "k2_device": device_ms(lambda: onehot_stem_conv(
             seg, dep, kern, bias, num_classes=11)),
         "k3_device": device_ms(calls["k3_stream"][0]),
     })
-    for name, (k3_call, k1_call, atomic_call) in calls.items():
+    for name, (k3_call, k1_call) in calls.items():
         k3_streams[name].update(k3_device_ms=device_ms(k3_call),
-                                k1_device_ms=device_ms(k1_call),
-                                k1_atomic_device_ms=device_ms(atomic_call))
+                                k1_device_ms=device_ms(k1_call))
         print(f"[time] {name}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in k3_streams[name].items()))
+        # place_min's passes one by one: device us a call
+        passes = {kernel.partition("::")[2].split("<")[0].split("(")[0]
+                  or kernel: us / 10
+                  for kernel, (_, us) in kernel_profile(k1_call, 10).items()}
+        k3_streams[name]["k1_passes_us"] = passes
+        print(f"[time] {name}: place_min passes (device us a call) "
+              + json.dumps({k: round(v, 2) for k, v in passes.items()}))
     x4 = torch.arange(prof_strided_load.ROWS * prof_strided_load.COLS,
                       dtype=torch.float32, device=dev).reshape(
                           prof_strided_load.ROWS, prof_strided_load.COLS)
@@ -3863,7 +3872,7 @@ def main() -> int:
     del xl
     for k, v in times.items():
         if k.startswith(("k3", "k4", "launch_floor")) or k in (
-                "k1_device", "k1_atomic_device", "k2_device"):
+                "k1_device", "k2_device"):
             print(f"[time] {k} {v:.4f} ms")
 
     # ---- 12. the serving CLI, counted; 13. serve and score --------------------
@@ -3912,12 +3921,11 @@ def main() -> int:
          "ms": times["k1"], "plain_ms": times["k1_plain"],
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": times["k1_lib"],
          "device_ms": times["k1_device"],
-         "earlier_ms": times["k1_atomic"],
-         "earlier_device_ms": times["k1_atomic_device"],
-         "streams": k3_streams, "one_tile": skew,
+         "earlier_ms": None, "earlier_device_ms": None,
+         "streams": k3_streams, "one_tile_ms": one_tile_ms,
          "note": "generic canvas, tile-owned (count, partition, place), "
                  "timed on the forecast stream; earlier_ms: the earlier kernel "
-                 "(EMPTY fill + one L2 atomicMin an entry) in the same run; "
+                 "is no longer in the tree; its time is in PERF.md; "
                  "launches: calls of the entry point, counted on "
                  "scripts/prof_minwin.py (off the forecast path)"},
         {"name": "onehot_stem_conv", "route": "cuda",

@@ -15,24 +15,25 @@
 // What bounds it on the H100: memory. On the forecast stream (3 frames x
 // 4 corner planes x 1024x2048 = 25.17 M groups, N = 6.29 M entries) it
 // must read 50.3 MB of stream and write a 100.7 MB canvas: 45 us at
-// 3.35 TB/s. The earlier kernel (an EMPTY fill pass, then one L2 atomicMin per
-// entry) took about three times that: the canvas is twice the 50 MB L2,
-// so most filled lines left L2 before an atomic reached them, and each
-// atomic pulled its sector back from HBM and dirtied it again.
+// 3.35 TB/s. The earlier kernel (an EMPTY fill pass, then one L2
+// atomicMin per entry) took about three times that: the canvas is twice
+// the 50 MB L2, so most filled lines left L2 before an atomic reached
+// them, and each atomic pulled its sector back from HBM and dirtied it.
 //
 // What the design does about it: the canvas is cut into tiles of T = 2^s
 // groups (s = tile_shift, 2..15, from the host's plan), and each tile is
-// owned by one CTA that holds it in shared memory, so the canvas is
-// written once, with 16-byte stores, and never read. Three kernels after
-// a memset of the counters:
+// owned by one CTA that holds it in shared memory, so a tile's canvas is
+// written once, with 16-byte stores, and never read back. Three kernels
+// after a memset of the counters:
 // 1. count: each CTA counts a contiguous span of groups, a warp 128
-//    entries a load round (16-byte loads where the pointer allows, else
-//    scalar ones; entries outside [0, num_groups) dropped). A run of
-//    neighbouring lanes on one tile adds its length once to a histogram
-//    in shared memory, which the CTA adds to the global tile counters,
-//    one atomic per touched tile. The last CTA through a ticket scans
-//    the counters into the buckets' starts, and the hot tiles (buckets
-//    longer than one place chunk) into a prefix of their chunks.
+//    entries a load round with the next round's loads in flight (16-byte
+//    loads where the pointer allows, else scalar ones; entries outside
+//    [0, num_groups) dropped). A run of neighbouring lanes on one tile
+//    adds its length once to a histogram in shared memory, which the CTA
+//    adds to the global tile counters, one atomic per touched tile. The
+//    last CTA through a ticket scans the counters into the buckets'
+//    starts, and the hot tiles (buckets longer than one place chunk) into
+//    a prefix of their chunks.
 // 2. partition: each CTA holds kPartChunk entries in registers, ranks
 //    them per tile in shared memory (one atomic per run of lanes), sorts
 //    them by tile in shared memory (a counting sort over its histogram),
@@ -41,23 +42,23 @@
 //    bytes, neighbouring threads to neighbouring slots of a run. Its CTAs
 //    also set the hot tiles' canvas to EMPTY.
 // 3. place: the CTA of a cold tile fills a window with EMPTY in shared
-//    memory, reads its bucket with 16-byte loads (two entries a lane),
-//    takes a shared atomicMin per run of equal offsets (a lane's two
-//    entries merge first, then runs across neighbouring lanes by a
-//    segmented min of shuffles, as in csrc/minwin.cu), and writes the
-//    window with 16-byte streaming stores. A hot tile's bucket is cut
-//    into chunks of kPlaceChunk, each placed by a CTA of its own into its
-//    own window, which it then takes into the canvas with one global
-//    atomicMin per slot that is not EMPTY. These CTAs run in the same
-//    launch as the cold tiles', so a bucket that holds a pile-up (the
-//    forecast stream's out-of-frame points clamped onto the last row hold
-//    0.43 M entries in one tile) spreads over many SMs, and its few
-//    groups cost a few atomics a chunk.
+//    memory, reads its bucket with 16-byte loads (two entries a lane, the
+//    next round's in flight), takes a shared atomicMin per run of equal
+//    offsets (a lane's two entries merge first, then runs across
+//    neighbouring lanes by a segmented min of shuffles, as in
+//    csrc/minwin.cu), and writes the window with 16-byte streaming
+//    stores. A hot tile's bucket is cut into chunks of kPlaceChunk, each
+//    placed by a CTA of its own into its own window, which it then takes
+//    into the canvas with one global atomicMin per slot that is not EMPTY.
+//    These CTAs run in the same launch as the cold tiles', so a bucket
+//    that holds a pile-up (the forecast stream's out-of-frame points,
+//    clamped onto the last rows, put 0.43 M entries in one tile) spreads
+//    over many SMs, and its few groups cost a few atomics a chunk.
 // On the forecast stream that moves 25.2 MB (count) + 100.7 MB
 // (partition) + 50.3 + 100.7 MB (place) = 276.8 MB, 83 us at 3.35 TB/s.
-// The stream's random parallax scatters a warp's 32 entries over some 17
-// tiles, so the count and the partition take one shared atomic for nearly
-// every entry, and a partition CTA's 4096 entries touch some 80 tiles.
+// The stream's random parallax scatters neighbouring entries over many
+// tiles, so the count and the partition take about one shared atomic an
+// entry, and a partition CTA's runs in each bucket are short.
 //
 // Skew: equal offsets in a warp cost one shared atomic per run (N/32 for
 // a stream on one group); a bucket holding all of a 6.29 M-entry stream
@@ -112,21 +113,6 @@ __global__ void fill_empty(int32_t* __restrict__ canvas, int64_t n) {
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     canvas[i] = kEmpty;
-  }
-}
-
-// The earlier generic kernel (after fill_empty): one L2 atomicMin per entry.
-__global__ void place_min_kernel(const int32_t* __restrict__ group,
-                                 const int32_t* __restrict__ key, int64_t n,
-                                 int32_t* __restrict__ canvas,
-                                 int64_t num_groups) {
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    int32_t g = group[i];
-    if (g >= 0 && (int64_t)g < num_groups) {
-      atomicMin(canvas + g, key[i]);
-    }
   }
 }
 
@@ -301,13 +287,25 @@ __global__ void __launch_bounds__(kCountThreads) count_tiles(Tiles p) {
   }
   const int64_t lim = min64((int64_t)(blockIdx.x + 1) * p.count_span, p.n);
   const int64_t stride = (int64_t)(blockDim.x >> 5) * 128 * kCountQuads;
-  for (int64_t w0 = (int64_t)blockIdx.x * p.count_span + (t >> 5) * 128;
-       w0 < lim; w0 += stride) {
-    int32_t g[4 * kCountQuads];
+  // the next round's loads are in flight while this round is counted
+  int32_t g[4 * kCountQuads], next[4 * kCountQuads];
+  int64_t w0 = (int64_t)blockIdx.x * p.count_span + (t >> 5) * 128;
 #pragma unroll
-    for (int j = 0; j < kCountQuads; ++j) {
-      load_quad<kVec>(p.group, w0 + j * (stride / kCountQuads), lim, lane,
-                      -1, g[4 * j], g[4 * j + 1], g[4 * j + 2], g[4 * j + 3]);
+  for (int j = 0; j < kCountQuads; ++j) {
+    load_quad<kVec>(p.group, w0 + j * (stride / kCountQuads), lim, lane, -1,
+                    next[4 * j], next[4 * j + 1], next[4 * j + 2],
+                    next[4 * j + 3]);
+  }
+  for (; w0 < lim; w0 += stride) {
+#pragma unroll
+    for (int c = 0; c < 4 * kCountQuads; ++c) g[c] = next[c];
+    if (w0 + stride < lim) {
+#pragma unroll
+      for (int j = 0; j < kCountQuads; ++j) {
+        load_quad<kVec>(p.group, w0 + stride + j * (stride / kCountQuads),
+                        lim, lane, -1, next[4 * j], next[4 * j + 1],
+                        next[4 * j + 2], next[4 * j + 3]);
+      }
     }
 #pragma unroll
     for (int c = 0; c < 4 * kCountQuads; ++c) {
@@ -383,8 +381,8 @@ __global__ void __launch_bounds__(kPartThreads) partition_tiles(Tiles p) {
     for (int64_t i = t; i < p.tiles; i += blockDim.x) hist[i] = 0;
     __syncthreads();
   }
-  const int64_t w0 =
-      ((int64_t)blockIdx.x * (kPartThreads / 32) + (t >> 5)) * (32 * kPartSlots);
+  const int64_t w0 = ((int64_t)blockIdx.x * (kPartThreads / 32) + (t >> 5)) *
+                     (32 * kPartSlots);
   const int32_t mask = (1 << p.shift) - 1;
   int32_t g[kPartSlots], k[kPartSlots];
   unsigned rank[kPartSlots];
@@ -556,15 +554,29 @@ __global__ void __launch_bounds__(kPlaceThreads) place_tiles(Tiles p) {
   const int lane = threadIdx.x & 31;
   const int64_t step = (int64_t)(blockDim.x >> 5) * 32 * kPlacePairs;
   // A warp takes 32 kPlacePairs pairs a round (lane l pairs q0 + 32 i + l),
-  // all loaded before any is placed.
-  for (int64_t q0 = (begin >> 1) + (threadIdx.x >> 5) * 32 * kPlacePairs;
-       q0 < (end + 1) >> 1; q0 += step) {
-    int o[2 * kPlacePairs];
-    int32_t k[2 * kPlacePairs];
+  // all loaded before any is placed, and the next round's loads are in
+  // flight while this round is placed.
+  const int64_t q_end = (end + 1) >> 1;
+  int64_t q0 = (begin >> 1) + (threadIdx.x >> 5) * 32 * kPlacePairs;
+  int o[2 * kPlacePairs], no[2 * kPlacePairs];
+  int32_t k[2 * kPlacePairs], nk[2 * kPlacePairs];
 #pragma unroll
-    for (int i = 0; i < kPlacePairs; ++i) {
-      load_pair(p.bucket, q0 + 32 * i + lane, begin, end, o[2 * i],
-                k[2 * i], o[2 * i + 1], k[2 * i + 1]);
+  for (int i = 0; i < kPlacePairs; ++i) {
+    load_pair(p.bucket, q0 + 32 * i + lane, begin, end, no[2 * i], nk[2 * i],
+              no[2 * i + 1], nk[2 * i + 1]);
+  }
+  for (; q0 < q_end; q0 += step) {
+#pragma unroll
+    for (int i = 0; i < 2 * kPlacePairs; ++i) {
+      o[i] = no[i];
+      k[i] = nk[i];
+    }
+    if (q0 + step < q_end) {
+#pragma unroll
+      for (int i = 0; i < kPlacePairs; ++i) {
+        load_pair(p.bucket, q0 + step + 32 * i + lane, begin, end,
+                  no[2 * i], nk[2 * i], no[2 * i + 1], nk[2 * i + 1]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kPlacePairs; ++i) {
@@ -780,24 +792,6 @@ extern "C" int place_min(const void* group, const void* key, int64_t n,
                      sizeof(int32_t) << kMaxTileShift);
   if (err != cudaSuccess) return (int)err;
   place_tiles<<<(unsigned)place_ctas, kPlaceThreads, window, s>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// The earlier generic placement: canvas filled with EMPTY, then one L2
-// atomicMin per entry. Returns cudaGetLastError() after the launches.
-extern "C" int place_min_atomic(const void* group, const void* key,
-                                int64_t n, void* canvas, int64_t num_groups,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int32_t* out = static_cast<int32_t*>(canvas);
-  fill_empty<<<grid_for(num_groups), kThreads, 0, s>>>(out, num_groups);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (n > 0) {
-    place_min_kernel<<<grid_for(n), kThreads, 0, s>>>(
-        static_cast<const int32_t*>(group), static_cast<const int32_t*>(key),
-        n, out, num_groups);
-  }
   return (int)cudaGetLastError();
 }
 

@@ -35,7 +35,6 @@ EMPTY = 0x7FFFFFFF  # untouched group; a key of 0 is a valid key
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "place_min": (_P, _P, _I64, _P, _I64, _INT, _INT, _I64, _P, _P, _P),
-    "place_min_atomic": (_P, _P, _I64, _P, _I64, _P),
     "place_min_fold": (_P, _P, _I64, _P, _INT, _INT, _INT, _P),
 }
 
@@ -147,27 +146,6 @@ def place_min(group: torch.Tensor, key: torch.Tensor,
 
 
 place_min.launches = 0
-
-
-def place_min_atomic(group: torch.Tensor, key: torch.Tensor,
-                     num_groups: int) -> torch.Tensor:
-    """``place_min`` by the earlier kernel: an EMPTY fill, then one L2
-    ``atomicMin`` per entry; kept to be timed beside the tile-owned
-    passes. CUDA tensors only."""
-    _check(group, key, num_groups)
-    if group.device.type != "cuda":
-        raise ValueError(f"place_min_atomic runs on CUDA, not {group.device}")
-    group = group.contiguous()
-    key = key.contiguous()
-    canvas = torch.empty((num_groups,), dtype=torch.int32, device=group.device)
-    lib = build.load("placement", _SIGNATURES)
-    build.launch(lib.place_min_atomic, group.device, group.data_ptr(),
-                 key.data_ptr(), group.numel(), canvas.data_ptr(), num_groups)
-    place_min_atomic.launches += 1
-    return canvas
-
-
-place_min_atomic.launches = 0
 
 
 def _shift2(c: torch.Tensor, dv: int, du: int) -> torch.Tensor:

@@ -5,7 +5,8 @@ The CUDA passes run only on the card. What surrounds them runs here: the
 host's plan (``place_min_plan``: tile size, tile count, scratch sizes,
 grids) on the edge shapes, and a numpy emulation of the three passes
 under that plan (count and exclusive scan, partition into per-tile
-buckets CTA by CTA, place each tile's bucket into an EMPTY window). The
+buckets CTA by CTA, place each tile's bucket into an EMPTY window, a
+bucket longer than a place chunk a chunk a window, taken in by min). The
 emulation's canvas is held bit for bit to ``place_min_plain`` and to the
 TPU kernel ``place_sorted``, run as tests/test_torch_port_zbuffer.py runs
 it (interpret mode on the lexsorted stream, block 512, sw 1024).
