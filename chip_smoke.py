@@ -15,7 +15,8 @@ trained weights then serve through K2 (phase 16), the same training
 data-parallel (``cli.train --distributed``, phase 17), the same paths
 with ``model.compute_dtype: bfloat16`` and under each model option
 (phase 18), the pc, odometry and fg data options and the PNG kinds the
-decoder expands (phase 19), and the single-call panoptic
+decoder expands (phase 19), the host IO layer ``native`` under the
+serving CLI on adaptively filtered PNGs (phase 20), and the single-call panoptic
 forecast (``panoptic_forecasting_tpu_torch.eval.build_forecast_step``) at
 full width: FCHarDNet-70 (configs/bg/bg_val_short.yaml: 3 reprojected
 frames, one-hot + depth, 11 stuff classes, folded BN, 1024x2048) and the
@@ -29,7 +30,8 @@ forecast path, K3 (``scripts/prof_minwin.py``, 3 frames of 1024x2048 =
 their scripts' sizes, and the exact z-buffer (``PCTransformModel``).
 
 Phases (any failure exits non-zero):
-  1. build the four CUDA sources from csrc/ with nvcc (in parallel);
+  1. build the four CUDA sources from csrc/ with nvcc and the host IO
+     library (csrc/native_io.cpp) with the host compiler, all in parallel;
   2. K1 on a full-size stream from a real reprojection: the forecast
      path's fused placement + corner fold (place_min_fold) and the
      generic place_min, each bit-equal to its plain version; place_min
@@ -257,12 +259,32 @@ Phases (any failure exits non-zero):
      losses as the run without the option, no kernel launched, and the
      image loader's ms a batch; (f) the decode ms of a 1024x2048 Adam7 and
      a palette label map beside phase 12's plain one.
+ 20. native IO (``native``: the compiled PNG row codec under every PNG
+     read and write of the port): the host compiler's version, its build
+     seconds and the CPU count; phase 12's 1024x2048 label and disparity
+     files and an RGB frame, each as the fixture writes it (unfiltered)
+     and rewritten with libpng's per-row filters (``FILTER_ADAPTIVE``),
+     decoded by ``native`` and by the plain codec (``data/png.py``):
+     arrays equal, ms of each, the rows of each filter; six adaptively
+     filtered disparity files through ``load_png_batch`` on 1 and 6
+     threads; ``save_png`` at ``PNG_IDS`` and ``PNG_SMOOTH16`` against
+     ``png.encode_png``: bytes equal, ms of each; then every PNG of phase
+     12's fixture rewritten adaptively and the serving CLI run on it with
+     the launch counts set to 0 just before and read just after: K1's fold
+     and K2 once a frame, the generic place_min never, every panoptic file
+     byte-equal to phase 12's, its pc_fetch, png_write and frames/s;
+     phase 16's bg loader ms per batch (its PNGs through the native batch
+     decode); and in turns (plain, native, native, plain) the bg loader
+     and the pc fetch on the adaptive fixture with the PNG reads as the
+     port made them before ``native`` (the plain codec, file by file)
+     and through ``native``.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (both K1 entry points, K2 and its bf16 entry, K3 and each K4
 probe) and the CLI's, the scoring's, the staged chain's, the training's
 (bg's under ``train.bg``, data parallelism's under ``train.dp``),
-phase 18's readings (``bf16``) and phase 19's (``data_options``), and last
+phase 18's readings (``bf16``), phase 19's (``data_options``) and phase
+20's (``native_io``), and last
 a JSON line
 {"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
@@ -281,11 +303,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from panoptic_forecasting_tpu_torch import native
 from panoptic_forecasting_tpu_torch.cli import (
     evaluate_instances, evaluate_panoptic, export_instances, export_odom,
     export_panoptic, export_segmentation, forecast_fused, prepare_bg_data,
@@ -296,7 +321,7 @@ from panoptic_forecasting_tpu_torch.cli.common import restore_params, setup
 from panoptic_forecasting_tpu_torch.core import build_dataset, build_model
 from panoptic_forecasting_tpu_torch.core import checkpoint as ckpt
 from panoptic_forecasting_tpu_torch.core.config import Config, load_config
-from panoptic_forecasting_tpu_torch.data import io as data_io, png, synthetic
+from panoptic_forecasting_tpu_torch.data import io as data_io, pc_data, png, synthetic
 from panoptic_forecasting_tpu_torch.data.cityscapes import id_to_train_id_lut
 from panoptic_forecasting_tpu_torch.data.io import load_png, save_png
 from panoptic_forecasting_tpu_torch.eval import build_forecast_step
@@ -1127,6 +1152,16 @@ def panoptic_maps(result_dir):
 
 def cli_outputs(report):
     return panoptic_maps(report["result_dir"])
+
+
+def panoptic_files(result_dir):
+    """{file name: bytes} of the PNGs of a COCO-panoptic export."""
+    folder = os.path.join(result_dir, os.path.basename(result_dir))
+    files = {}
+    for name in sorted(os.listdir(folder)):
+        with open(os.path.join(folder, name), "rb") as f:
+            files[name] = f.read()
+    return files
 
 
 def step_panoptics(cfg, store, dev):
@@ -3629,6 +3664,209 @@ def data_options_phase(dev, root, fixtures, refs, train_readings, cli_readings):
     return readings
 
 
+# ---- 20. native IO -----------------------------------------------------------
+
+
+def median_ms(fn, n=3):
+    """(median host ms of ``fn()`` over ``n`` calls, its last result)."""
+    ms = []
+    for _ in range(n):
+        ts = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - ts) * 1e3)
+    return sorted(ms)[n // 2], out
+
+
+def row_filters(data: bytes):
+    """How many rows of a non-interlaced 8- or 16-bit PNG use each of the
+    five filters (None, Sub, Up, Average, Paeth)."""
+    hdr = png._header(data)
+    stride = hdr["width"] * png.CHANNELS[hdr["ctype"]] * hdr["depth"] // 8 + 1
+    kinds = np.frombuffer(zlib.decompress(hdr["idat"]), np.uint8)[::stride]
+    return np.bincount(kinds, minlength=5).tolist()
+
+
+def rewrite_adaptive(paths):
+    """Rewrite each PNG in place with libpng's per-row filter choice at
+    level 1 (``PNG_SMOOTH16``'s settings), on a thread per CPU; each file
+    read back must give the pixels it had."""
+    def one(path):
+        arr = native.load_png(path)
+        save_png(path, arr, **data_io.PNG_SMOOTH16)
+        if not np.array_equal(native.load_png(path), arr):
+            raise SystemExit(f"the adaptive rewrite of {path} changed its pixels")
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count()) as ex:
+        list(ex.map(one, paths))
+
+
+@contextlib.contextmanager
+def plain_png_reads():
+    """Within the block the data layer reads PNG as the port did before
+    ``native``: the plain codec (``data/png.py``), one file after another."""
+    def load(path):
+        with open(path, "rb") as f:
+            return png.decode_png(f.read())
+
+    def batch(paths):
+        return np.stack([load(p) for p in paths])
+
+    saved = data_io.load_png, data_io.load_png_batch, pc_data.load_png_batch
+    data_io.load_png, data_io.load_png_batch, pc_data.load_png_batch = load, batch, batch
+    try:
+        yield
+    finally:
+        data_io.load_png, data_io.load_png_batch, pc_data.load_png_batch = saved
+
+
+def pc_fetch_ms(cfg, store, frames=2):
+    """Host ms of the serving CLI's pc fetch (``forecast_fused._pc_inputs``:
+    the frame's 6 PNG decodes and its pc host work) for each of the first
+    ``frames`` frames."""
+    with store_readers(store):
+        pc_ds, pc_idx = forecast_fused._pc_index(cfg["fused"], "val")
+        lut = id_to_train_id_lut()
+        ms = []
+        for name in sorted(pc_idx)[:frames]:
+            ts = time.perf_counter()
+            forecast_fused._pc_inputs(pc_ds, pc_idx[name], lut)
+            ms.append((time.perf_counter() - ts) * 1e3)
+    return ms
+
+
+def native_io_phase(root, fixtures, cli_files, build_s, train_readings, refs):
+    """Phase 20: the host IO layer (see the module doc)."""
+    ts0 = time.perf_counter()
+    cfg, store, _ = fixtures["full"]
+    full = os.path.dirname(cfg["fused"]["pc_config"])
+    out = os.path.join(root, "native_io")
+    os.makedirs(out, exist_ok=True)
+    version = subprocess.run([*build.cxx(), "--version"], capture_output=True,
+                             text=True, check=True).stdout.splitlines()[0]
+    readings = {"compiler": version, "build_s": build_s, "cpu_count": os.cpu_count()}
+    print(f"[native] {version}; csrc/native_io.cpp built in {build_s:.2f} s "
+          f"(phase 1, beside nvcc); {os.cpu_count()} CPUs")
+
+    # (a) one file of each kind, as the fixture writes it and adaptively
+    cs = os.path.join(full, "cs")
+    labels = sorted(glob.glob(os.path.join(cs, "seg", "**", "pred_mask_*.png"),
+                              recursive=True))
+    disps = sorted(glob.glob(os.path.join(cs, "disparity_sequence", "**",
+                                          "*_disparity.png"), recursive=True))
+    rgb = os.path.join(out, "rgb_leftImg8bit.png")
+    save_png(rgb, synthetic.rgb_frame(native.load_png(labels[0])), **data_io.PNG_IDS)
+    decode = {}
+    for kind, path in (("labels8", labels[0]), ("disparity16", disps[0]), ("rgb8", rgb)):
+        with open(path, "rb") as f:
+            unfiltered = f.read()
+        arr = native.decode_png(unfiltered)
+        adaptive = native.encode_png(arr, **data_io.PNG_SMOOTH16)
+        for profile, data in (("unfiltered", unfiltered), ("adaptive", adaptive)):
+            ms, got = median_ms(lambda: native.decode_png(data))
+            plain_ms, want = median_ms(lambda: png.decode_png(data),
+                                       3 if profile == "unfiltered" else 1)
+            if not (np.array_equal(got, want) and np.array_equal(got, arr)
+                    and got.dtype == want.dtype):
+                raise SystemExit(f"native and plain decodes of {kind} ({profile}) differ")
+            decode[f"{kind}_{profile}"] = {"ms": ms, "plain_ms": plain_ms,
+                                           "row_filters": row_filters(data),
+                                           "bytes": len(data), "shape": list(arr.shape)}
+    readings["decode"] = decode
+    for k, v in decode.items():
+        print(f"[native] decode {k} {v['shape']}: native {v['ms']:.2f} ms, plain "
+              f"{v['plain_ms']:.2f} ms, equal; rows None/Sub/Up/Avg/Paeth "
+              f"{v['row_filters']}, {v['bytes']} B")
+
+    # (b) six adaptively filtered disparity files, one batch
+    six, want = [], []
+    for i, path in enumerate((disps * 6)[:6]):
+        six.append(os.path.join(out, f"disp{i}.png"))
+        want.append(native.load_png(path))  # the unfiltered file's pixels
+        save_png(six[-1], want[-1], **data_io.PNG_SMOOTH16)
+    batch = {}
+    for threads in (1, 6):
+        batch[f"threads_{threads}_ms"], got = median_ms(
+            lambda: native.load_png_batch(six, threads))
+        if not np.array_equal(got, np.stack(want)):
+            raise SystemExit(f"the batch decode on {threads} threads differs from "
+                             "the unfiltered files")
+    readings["batch6_disparity16"] = batch
+    print(f"[native] load_png_batch of 6 adaptive 16-bit disparities: "
+          f"1 thread {batch['threads_1_ms']:.2f} ms, 6 threads "
+          f"{batch['threads_6_ms']:.2f} ms")
+
+    # (c) the writer against the plain encoder
+    write = {}
+    for profile, kind, plain_filter in (("PNG_IDS", "labels8", png.FILTER_NONE),
+                                        ("PNG_SMOOTH16", "disparity16", None)):
+        arr = native.load_png(labels[0] if kind == "labels8" else disps[0])
+        kw = getattr(data_io, profile)
+        ms, got = median_ms(lambda: native.encode_png(arr, **kw))
+        plain_ms, want = median_ms(lambda: png.encode_png(arr, 1, plain_filter),
+                                   3 if plain_filter is not None else 1)
+        if got != want:
+            raise SystemExit(f"save_png's bytes at {profile} differ from png.encode_png")
+        write[profile] = {"ms": ms, "plain_ms": plain_ms, "bytes": len(got)}
+        print(f"[native] encode {kind} at {profile}: native {ms:.2f} ms, plain "
+              f"{plain_ms:.2f} ms, bytes equal ({len(got)} B)")
+    readings["encode"] = write
+
+    # (d) the serving CLI on the fixture rewritten adaptively
+    ts = time.perf_counter()
+    inputs = [p for d in ("cs", "fg", "bg_export")
+              for p in glob.glob(os.path.join(full, d, "**", "*.png"), recursive=True)]
+    rewrite_adaptive(inputs)
+    readings["rewrite"] = {"files": len(inputs), "s": time.perf_counter() - ts}
+    reset_counts()
+    report = run_cli(cfg, store, export_name="fused_adaptive")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    frames = report["frames"]
+    if (frames != CLI_SCENES or launches["place_min_fold"] != frames
+            or launches["onehot_stem_conv"] != frames or launches["place_min"] != 0):
+        raise SystemExit(f"the CLI on the adaptive fixture: {frames} frames, "
+                         f"launches {launches}")
+    files = panoptic_files(report["result_dir"])
+    if files != cli_files:
+        raise SystemExit("the CLI's panoptic files on the adaptive fixture differ "
+                         "from phase 12's: " + ", ".join(
+                             n for n in sorted(set(files) | set(cli_files))
+                             if files.get(n) != cli_files.get(n)))
+    med = {k: float(np.median(v)) for k, v in report["ms"].items()}
+    readings["cli"] = {"frames": frames, "launches": launches,
+                       "frames_per_s": frames / report["seconds"], "median_ms": med}
+    print(f"[native] CLI on {len(inputs)} adaptively filtered PNGs "
+          f"(rewritten in {readings['rewrite']['s']:.1f} s): {frames} frames, "
+          f"launches {launches}, {len(files)} panoptic files byte-equal to phase "
+          f"12's; pc_fetch {med['pc_fetch']:.1f} ms, png_write "
+          f"{med['png_write']:.1f} ms, {readings['cli']['frames_per_s']:.3f} frames/s")
+    readings["bg_loader_ms"] = train_readings["bg"]["loader_ms"]
+    print(f"[native] phase 16's bg loader through the native batch decode: "
+          f"{readings['bg_loader_ms'][0]:.1f} ms per batch (min "
+          f"{readings['bg_loader_ms'][1]:.1f}, max {readings['bg_loader_ms'][2]:.1f})")
+
+    # (e) the reads as the port made them before native (plain codec, one
+    # file after another) beside native, in turns: phase 16's bg loader
+    # (median ms a batch over 3) and the pc fetch on the adaptive fixture
+    bg_argv = bg_train_argv(refs["bg_wd"], refs["bg_data"],
+                            ("training.steps_per_epoch", BG_STEPS))
+    turns = {"bg_loader_ms": {"plain": [], "native": []},
+             "pc_fetch_ms": {"plain": [], "native": []}}
+    for reads in ("plain", "native", "native", "plain"):
+        with plain_png_reads() if reads == "plain" else contextlib.nullcontext():
+            turns["bg_loader_ms"][reads].append(
+                loader_ms(bg_argv, refs["bg_store"], batches=3)[0])
+            turns["pc_fetch_ms"][reads] += pc_fetch_ms(cfg, store)
+    readings["turns"] = turns
+    for k, v in turns.items():
+        print(f"[native] {k} in turns (plain, native, native, plain): plain "
+              + ", ".join(f"{x:.1f}" for x in v["plain"]) + "; native "
+              + ", ".join(f"{x:.1f}" for x in v["native"]))
+    readings["phase_s"] = time.perf_counter() - ts0
+    print(f"[native] phase 20 took {readings['phase_s']:.1f} s")
+    return readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3643,9 +3881,10 @@ def main() -> int:
     print("[packages] importable here: " + json.dumps(optional_packages()))
 
     # ---- 1. build -----------------------------------------------------------
-    secs = build.build(["placement", "stem", "minwin", "strided_load"],
+    secs = build.build(["placement", "stem", "minwin", "strided_load", "native_io"],
                        verbose=True)
-    print("[build] " + ", ".join(f"{k}.cu {v:.1f}s" for k, v in secs.items()))
+    print("[build] " + ", ".join(f"{build.source(k).name} {v:.1f}s"
+                                 for k, v in secs.items()))
 
     bg, fg = make_models(dev)
     pc_in, fg_in = make_inputs(H, W)
@@ -3878,6 +4117,7 @@ def main() -> int:
     # ---- 12. the serving CLI, counted; 13. serve and score --------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         cli_launches, cli_readings, fixtures = cli_phase(dev, root)
+        cli_files = panoptic_files(fixtures["full"][2]["cuda"]["result_dir"])
         score_readings = score_phase(dev, fixtures, card)
         staged_readings = staged_phase(dev, fixtures, card)
         refs = {}
@@ -3888,6 +4128,8 @@ def main() -> int:
                                                   train_readings)
         data_readings = data_options_phase(dev, root, fixtures, refs, train_readings,
                                            cli_readings)
+        native_readings = native_io_phase(root, fixtures, cli_files,
+                                          secs["native_io"], train_readings, refs)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
@@ -3991,7 +4233,8 @@ def main() -> int:
         k: cli_readings[k] for k in ("frames", "frames_per_s", "median_ms",
                                      "png_decode_ms", "thing_pixels")},
         "score": score_readings, "staged": staged_readings, "train": train_readings,
-        "bf16": bf16_readings, "data_options": data_readings}))
+        "bf16": bf16_readings, "data_options": data_readings,
+        "native_io": native_readings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 Counterpart of ``panoptic_forecasting_tpu/data/io.py`` (the reference's
 unshipped ``data_utils.read_json_file`` / ``load_depth``,
 pc_transform_dataset.py:115,141,274, re-derived from the Cityscapes
-disparity encoding). PNG goes through the port's own codec
-(``data/png.py``), not libpng or Pillow.
+disparity encoding). PNG goes through the port's ``native`` module (a
+compiled row codec over Python's ``zlib``, libpng's arrays and bytes), not
+libpng or Pillow.
 
 Every reader of a pandas table goes through ``read_table``, every reader
 of an HDF5 file through ``open_h5`` and every writer of one through
@@ -20,7 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .png import FILTER_NONE, decode_png, encode_png
+from .. import native
 
 
 def read_json_file(path: str) -> dict:
@@ -69,30 +70,30 @@ def append_h5(path: str, arrays: Dict[str, np.ndarray],
 
 
 def load_png(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        return decode_png(f.read())
+    return native.load_png(path)
 
 
 def load_png_batch(paths) -> np.ndarray:
-    """Decode N same-geometry PNGs into one (N, H, W[, C]) array."""
-    return np.stack([load_png(p) for p in paths])
+    """Decode N same-geometry PNGs into one (N, H, W[, C]) array, the files
+    on threads at once (``native.load_png_batch``)."""
+    return native.load_png_batch(paths)
 
 
 # PNG write profiles (the JAX package's): id/label maps and masks with
-# every row unfiltered at zlib level 1; 16-bit depth and disparity with
-# libpng's per-row filter choice at level 1.
-PNG_IDS = {"compress_level": 1, "filter_type": FILTER_NONE}
+# every row unfiltered (libpng's PNG_FILTER_NONE mask, 0x08) at zlib level
+# 1; 16-bit depth and disparity with libpng's per-row filter choice at
+# level 1.
+PNG_IDS = {"compress_level": 1, "filters": native.FILTER_NONE}
 PNG_SMOOTH16 = {"compress_level": 1}
 
 
 def save_png(path: str, arr: np.ndarray, compress_level: int = 6,
-             filter_type: Optional[int] = None) -> None:
-    """Write ``arr`` as PNG: each row filtered with ``filter_type``, or by
-    default with the filter libpng would pick (``png.encode_png``)."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    data = encode_png(arr, compress_level, filter_type)
-    with open(path, "wb") as f:
-        f.write(data)
+             filters: Optional[int] = None) -> None:
+    """Write ``arr`` as PNG, the bytes libpng writes: ``filters`` is
+    libpng's ``PNG_FILTER_*`` mask, ``None`` for all five filters chosen
+    per row (``native.save_png``)."""
+    native.save_png(path, np.asarray(arr), compress_level,
+                    native.FILTER_ADAPTIVE if filters is None else filters)
 
 
 class AsyncWriter:

@@ -1,9 +1,15 @@
-"""A PNG codec on numpy and the standard library's ``zlib``.
+"""A PNG codec on numpy and the standard library's ``zlib``: the plain
+version of the port's host IO layer.
 
 The JAX package reads and writes PNG through libpng (its ``native/``
-module) or Pillow; the port carries its own codec so that it needs
-neither. The decoder returns what the JAX package's native reader
-returns, the rows of libpng's ``png_set_expand`` + ``png_read_image``:
+module) or Pillow; the port needs neither. Its data path reads and
+writes through ``native`` (``csrc/native_io.cpp``: the row filters in
+C++), which shares this module's chunk parsing, sample expansion
+(``decode_png`` with its ``unfilter``) and file assembly
+(``sample_rows``, ``png_file``); this module's numpy row filters are
+what the tests hold the compiled ones to. The decoder returns what the
+JAX package's native reader returns, the rows of libpng's
+``png_set_expand`` + ``png_read_image``:
 
 * gray, gray + alpha, RGB and RGBA at 8 or 16 bits per sample, as stored;
 * gray at 1, 2 or 4 bits scaled to 8 (``v * 255 / (2**bits - 1)``);
@@ -201,28 +207,38 @@ def _expand(pix: np.ndarray, ctype: int, depth: int, plte, trns) -> np.ndarray:
     return pix
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def decode_png(data: bytes, unfilter=_unfilter) -> np.ndarray:
     """PNG bytes -> (H, W) or (H, W, C) uint8/uint16 array, as libpng
-    reads it with ``png_set_expand`` (see the module doc)."""
+    reads it with ``png_set_expand`` (see the module doc). ``unfilter``
+    undoes one pass's row filters, ``(rows, 1 + stride)`` bytes and the
+    filters' byte distance -> ``(rows, stride)`` bytes: this module's numpy
+    version, or the compiled one of the ``native`` module."""
     hdr = _header(data)
     h, w, depth, ctype = hdr["height"], hdr["width"], hdr["depth"], hdr["ctype"]
     ch = STORED_CHANNELS[ctype]
     bits = ch * depth
     bpp = max(1, bits // 8)  # the filters' byte distance
-    buf = np.frombuffer(zlib.decompress(hdr["idat"]), np.uint8)
-    pix = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
-    pos = 0
+    passes = []
     for y0, x0, dy, dx in (ADAM7 if hdr["interlace"] else ((0, 0, 1, 1),)):
         if y0 >= h or x0 >= w:
             continue  # an empty pass has no bytes, not even filter bytes
         ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
-        stride = -(-(pw * bits) // 8)
-        size = ph * (stride + 1)
-        if buf.size < pos + size:
-            raise ValueError("PNG image data is truncated")
-        rows = _unfilter(buf[pos:pos + size].reshape(ph, stride + 1), bpp)
-        pix[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
-        pos += size
+        passes.append((y0, x0, dy, dx, ph, pw, -(-(pw * bits) // 8)))
+    size = sum(ph * (stride + 1) for *_, ph, pw, stride in passes)
+    buf = np.frombuffer(zlib.decompress(hdr["idat"], bufsize=max(size, 1)), np.uint8)
+    if buf.size < size:
+        raise ValueError("PNG image data is truncated")
+    pix = (np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+           if hdr["interlace"] else None)
+    pos = 0
+    for y0, x0, dy, dx, ph, pw, stride in passes:
+        rows = unfilter(buf[pos:pos + ph * (stride + 1)].reshape(ph, stride + 1), bpp)
+        samples = _samples(rows, pw, ch, depth)
+        if pix is None:
+            pix = samples  # not interlaced: one pass, the whole image
+        else:
+            pix[y0::dy, x0::dx] = samples
+        pos += ph * (stride + 1)
     pix = _expand(pix, ctype, depth, hdr["plte"], hdr["trns"])
     return pix[..., 0] if pix.shape[-1] == 1 else pix
 
@@ -307,6 +323,33 @@ def _zlib_stream(body: bytes, level: int, strategy: int) -> bytes:
 IDAT_SIZE = 8192  # libpng's PNG_ZBUF_SIZE: it writes IDAT chunks this long
 
 
+def sample_rows(arr: np.ndarray) -> Tuple[np.ndarray, int, int]:
+    """A uint8/uint16 (H, W) or (H, W, C) array -> its rows as a PNG
+    stores them, (H, W * C * bytes) big-endian bytes, with the bit depth
+    and the channel count."""
+    if arr.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"PNG samples must be uint8 or uint16, not {arr.dtype}")
+    h, w = arr.shape[:2]
+    ch = 1 if arr.ndim == 2 else arr.shape[2]
+    if arr.ndim not in (2, 3) or ch not in COLOR_TYPE:
+        raise ValueError(f"cannot write an array of shape {arr.shape} as PNG")
+    pix = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder(">"))
+    return pix.view(np.uint8).reshape(h, -1), 8 * arr.dtype.itemsize, ch
+
+
+def png_file(body: np.ndarray, width: int, depth: int, channels: int,
+             compress_level: int, strategy: int) -> bytes:
+    """The PNG file of filtered rows ``body`` ((H, 1 + stride) bytes, a
+    filter byte first), as libpng writes it: ``_zlib_stream`` deflated,
+    IDAT chunks of ``IDAT_SIZE`` bytes."""
+    stream = _zlib_stream(body.tobytes(), compress_level, strategy)
+    ihdr = struct.pack(">IIBBBBB", width, body.shape[0], depth,
+                       COLOR_TYPE[channels], 0, 0, 0)
+    idat = b"".join(_chunk(b"IDAT", stream[i:i + IDAT_SIZE])
+                    for i in range(0, len(stream), IDAT_SIZE))
+    return SIGNATURE + _chunk(b"IHDR", ihdr) + idat + _chunk(b"IEND", b"")
+
+
 def encode_png(arr: np.ndarray, compress_level: int = 6,
                filter_type: Optional[int] = FILTER_NONE) -> bytes:
     """(H, W) or (H, W, C) uint8/uint16 array -> PNG bytes, every row
@@ -317,17 +360,10 @@ def encode_png(arr: np.ndarray, compress_level: int = 6,
     arr = np.asarray(arr)
     if arr.dtype == np.bool_:
         arr = arr.astype(np.uint8)
-    if arr.dtype not in (np.uint8, np.uint16):
-        raise TypeError(f"PNG samples must be uint8 or uint16, not {arr.dtype}")
+    raw, depth, ch = sample_rows(arr)
     h, w = arr.shape[:2]
-    ch = 1 if arr.ndim == 2 else arr.shape[2]
-    if arr.ndim not in (2, 3) or ch not in COLOR_TYPE:
-        raise ValueError(f"cannot write an array of shape {arr.shape} as PNG")
-    depth = 8 * arr.dtype.itemsize
     bpp = ch * arr.dtype.itemsize
-    pix = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder(">"))
-    raw = pix.view(np.uint8).reshape(h, w * bpp)
-    body = np.empty((h, w * bpp + 1), np.uint8)
+    body = np.empty((h, raw.shape[1] + 1), np.uint8)
     if filter_type is None and (h > 1 or w > 1):
         body[:, 0], body[:, 1:] = _adaptive(raw, bpp, w)
     else:
@@ -335,8 +371,4 @@ def encode_png(arr: np.ndarray, compress_level: int = 6,
         body[:, 0] = filter_type
         body[:, 1:] = _filter(raw, filter_type, bpp)
     strategy = zlib.Z_DEFAULT_STRATEGY if filter_type == FILTER_NONE else zlib.Z_FILTERED
-    stream = _zlib_stream(body.tobytes(), compress_level, strategy)
-    ihdr = struct.pack(">IIBBBBB", w, h, depth, COLOR_TYPE[ch], 0, 0, 0)
-    idat = b"".join(_chunk(b"IDAT", stream[i:i + IDAT_SIZE])
-                    for i in range(0, len(stream), IDAT_SIZE))
-    return SIGNATURE + _chunk(b"IHDR", ihdr) + idat + _chunk(b"IEND", b"")
+    return png_file(body, w, depth, ch, compress_level, strategy)

@@ -44,7 +44,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from . import io, png
+from .. import native
+from . import io
 from .cityscapes import train_id_to_id_lut
 from .io import PNG_IDS, save_png
 
@@ -472,7 +473,7 @@ def write_odom_images(root: str, rows: List[Dict], split: str, height: int,
     JAX fixture's RGB content of a toy street (``make_scene_sequence``
     from ``seed``), one PNG encoded once and written at every path."""
     seg = make_scene_sequence(1, height, width, seed=seed)[0][0]
-    data = png.encode_png(rgb_frame(train_id_to_id_lut()[seg]), **PNG_IDS)
+    data = native.encode_png(rgb_frame(train_id_to_id_lut()[seg]), **PNG_IDS)
     for r in rows:
         city, seq, frame = r["city"], r["seq"], int(r["frame"])
         out = os.path.join(root, "leftImg8bit_sequence", split, city)

@@ -1,17 +1,21 @@
-"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's hand-written native code and load it with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-first use into ``_build/lib<name>-<hash>.so`` inside the package (a
-directory ``.gitignore`` lists), for ``sm_90a``. The hash covers the
-source and the flags, so an edited source is rebuilt. No PyTorch headers
-are included: a build takes seconds, not minutes.
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host
+code: the PNG row codec and pixel transforms of ``native/``) exposes a
+plain C interface and is compiled on first use into
+``_build/lib<name>-<hash>.so`` inside the package (a directory
+``.gitignore`` lists): a ``.cu`` with nvcc for ``sm_90a``, a ``.cpp`` with
+the host compiler (``CXX``, else ``c++`` or ``g++``). The hash covers the
+source and the flags, so an edited source is rebuilt. No PyTorch or
+Python headers are included: a build takes seconds, not minutes. A
+failed build raises with the compiler's output; nothing falls back.
 
-Sources come from this package only. Several kernels are built in
-parallel (one ``nvcc`` process each) by ``build``; ``load`` builds one
+Sources come from this package only. Several libraries are built in
+parallel (one compiler process each) by ``build``; ``load`` builds one
 when it is missing, sets the ctypes signatures of its functions once, and
 returns the loaded library; ``load_edited`` builds textually edited copies
-of a source for the profiling scripts. ``launch`` calls a function on a
-tensor's device and current stream and raises on a CUDA error.
+of a CUDA source for the profiling scripts. ``launch`` calls a kernel on
+a tensor's device and current stream and raises on a CUDA error.
 """
 
 from __future__ import annotations
@@ -19,11 +23,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Mapping, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence
 
 import torch
 
@@ -34,8 +40,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # threads that load one library build it once
 
 
 def _nvcc() -> str:
@@ -52,22 +60,44 @@ def _nvcc() -> str:
     return found
 
 
+def cxx() -> List[str]:
+    """The host compiler's command: ``CXX`` (split as a shell would), else
+    ``c++`` or ``g++`` on the PATH."""
+    if os.environ.get("CXX"):
+        return shlex.split(os.environ["CXX"])
+    found = shutil.which("c++") or shutil.which("g++")
+    if found is None:
+        raise RuntimeError("no C++ compiler found (set CXX); the port's host "
+                           "IO library is built with it")
+    return [found]
+
+
+def source(name: str) -> Path:
+    """``csrc/<name>.cu`` where it exists, else ``csrc/<name>.cpp``."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(src: Path) -> tuple:
+    return NVCC_FLAGS if src.suffix == ".cu" else HOST_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    src = source(name)
+    digest = hashlib.sha1(src.read_bytes() + " ".join(_flags(src)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _compile(jobs: Mapping[str, tuple], verbose: bool) -> Dict[str, float]:
-    """Run one nvcc per (source, library) job, all at once; the wall
-    seconds each took."""
+    """Run one compiler per (source, library) job, all at once: nvcc for a
+    ``.cu``, the host compiler for a ``.cpp``; the wall seconds each took."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for label, (src, out) in jobs.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        if verbose:
+        cuda = src.suffix == ".cu"
+        cmd = [*([_nvcc()] if cuda else cxx()), *_flags(src), "-o", str(tmp), str(src)]
+        if verbose and cuda:
             cmd[1:1] = ["-Xptxas", "-v"]
         procs[label] = (
             subprocess.Popen(
@@ -85,25 +115,25 @@ def _compile(jobs: Mapping[str, tuple], verbose: bool) -> Dict[str, float]:
             failed.append(f"{label}:\n{log}")
             continue
         if verbose and log:
-            print(f"[nvcc {label}]\n{log.rstrip()}")
+            print(f"[build {label}]\n{log.rstrip()}")
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return seconds
 
 
 def build(names: Iterable[str], verbose: bool = False) -> Dict[str, float]:
-    """Compile every missing library, all nvcc processes at once.
+    """Compile every missing library, all compiler processes at once.
 
     Returns the wall seconds each build took (0.0 when already built).
-    ``verbose`` adds ``-Xptxas -v`` and prints what ptxas reports
+    ``verbose`` adds ``-Xptxas -v`` to nvcc and prints what ptxas reports
     (registers, shared memory, spills) for each kernel.
     """
     names = list(names)
-    jobs = {f"{n}.cu": (CSRC / f"{n}.cu", library_path(n)) for n in names
+    jobs = {source(n).name: (source(n), library_path(n)) for n in names
             if not library_path(n).exists()}
     seconds = _compile(jobs, verbose)
-    return {n: seconds.get(f"{n}.cu", 0.0) for n in names}
+    return {n: seconds.get(source(n).name, 0.0) for n in names}
 
 
 def _bind(lib: ctypes.CDLL, signatures: Optional[Mapping[str, Sequence]]):
@@ -141,19 +171,24 @@ def load_edited(name: str, edits: Mapping[str, Mapping[str, str]],
 
 def load(name: str,
          signatures: Optional[Mapping[str, Sequence]] = None) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use.
+    """The loaded library for ``csrc/<name>.cu`` or ``.cpp``, built on
+    first use.
 
     ``signatures`` maps each C function to its ctypes argument types (every
-    function returns a CUDA error code, ``int``); they are set when the
-    library is first loaded, not on every call.
+    function returns an ``int``: a CUDA error code, or 0 or a negative code
+    for host code); they are set when the library is first loaded, not on
+    every call.
     """
     lib = _loaded.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = _bind(ctypes.CDLL(str(path)), signatures)
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build([name])
+                lib = _bind(ctypes.CDLL(str(path)), signatures)
+                _loaded[name] = lib
     return lib
 
 

@@ -130,9 +130,10 @@ def test_png_written_reads_in_pillow(filter_type):
 def test_png_writes_libpngs_bytes(tmp_path, profile):
     """``save_png`` writes, byte for byte, the file the JAX package's
     native libpng writer writes for each of its profiles (unfiltered
-    level 1, adaptive level 1, adaptive level 6): small images (the
-    smaller deflate window), images past one 8192-byte IDAT, one-row and
-    one-column images, smooth 16-bit depth, every channel count."""
+    level 1, adaptive level 1, adaptive level 6), whose settings are the
+    JAX package's: small images (the smaller deflate window), images past
+    one 8192-byte IDAT, one-row and one-column images, smooth 16-bit depth,
+    every channel count, an int32 id map (written as 16 bits)."""
     from panoptic_forecasting_tpu import native
     from panoptic_forecasting_tpu.data import io as jax_io
     from panoptic_forecasting_tpu_torch.data import io as port_io
@@ -142,11 +143,13 @@ def test_png_writes_libpngs_bytes(tmp_path, profile):
     kw = {"ids": (jax_io.PNG_IDS, port_io.PNG_IDS),
           "smooth16": (jax_io.PNG_SMOOTH16, port_io.PNG_SMOOTH16),
           "default": ({}, {})}[profile]
+    assert kw[1] == kw[0]
     yy, xx = np.mgrid[:96, :160]
     smooth = ((np.sin(xx / 17.0) + np.cos(yy / 11.0)) * 15000 + 32000).astype(np.uint16)
     arrays = [_image(k, 3) for k in KINDS] + [
         smooth, smooth[:1], smooth[:, :1], _image("gray8", 4)[:1, :7],
-        np.random.RandomState(5).randint(0, 12, (256, 512)).astype(np.uint8)]
+        np.random.RandomState(5).randint(0, 12, (256, 512)).astype(np.uint8),
+        np.random.RandomState(6).randint(0, 34000, (64, 96)).astype(np.int32)]
     for i, arr in enumerate(arrays):
         jax_io.save_png(str(tmp_path / f"j{i}.png"), arr, **kw[0])
         port_io.save_png(str(tmp_path / f"p{i}.png"), arr, **kw[1])

@@ -41,7 +41,7 @@ def test_port_imports_no_jax_no_jax_package_no_pillow():
                  "data.bg_data", "data.transforms", "cli.train", "train.loop",
                  "train.optim", "core.metrics", "models.torch_import", "models.bg",
                  "models.hardnet", "models.convert", "data.loader", "data.synthetic",
-                 "data.pipelines", "parallel", "parallel.mesh"):
+                 "data.pipelines", "parallel", "parallel.mesh", "native"):
         assert f"panoptic_forecasting_tpu_torch.{must}" in names, must
     loaded = rep["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
