@@ -1,0 +1,10 @@
+"""forecast.bg_ms: device ms per forecast of the step's bg stage
+in the full traced window (portbench/harness/stages.py says which launches
+belong to it)."""
+
+from portbench.harness.stages import split_us
+
+
+def read(trace, counts, spec):
+    us = split_us(trace.full)["bg"]
+    return us / 1e3 / counts["frames"] if us > 0 else None
