@@ -15,6 +15,11 @@ frame the step:
      forecasts ulbr boxes (``use_bbox_ulbr``); the instance depth is the
      column after the box state (4 under ``only_loc_feats``, else 8).
 
+While a ``torch.profiler`` records, a call is the span ``pf.forecast``
+and its stages the spans ``pf.forecast.pc``, ``.bg``, ``.fg`` and
+``.fusion`` (``core/tracing.py``); each input's copy to the device is
+launched in the stage that reads it.
+
 Reference capability: the chained scripts of
 ``scripts/fg/run_fg_eval_panoptic.sh`` (pc export -> bg export ->
 panoptic export), here one call with no host round trip between stages.
@@ -26,6 +31,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from ..core.tracing import span
 from ..device import DeviceLike, resolve_device
 from ..geometry.boxes import bbox_cwh_to_ulbr
 from ..kernels.mask_paste import paste_and_composite
@@ -89,90 +95,99 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
 
     @torch.no_grad()
     def step(pc_in: Dict[str, Any], fg_in: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        seg = tensor(pc_in["seg"])
-        b, t = seg.shape[:2]
+        with span("forecast"):
+            return staged(pc_in, fg_in)
+
+    def staged(pc_in, fg_in):
         f32 = torch.float32
 
         # ---- 1. per-frame reprojection (reference ind0/1/2 exports) -----
-        def flat(x, dtype=None):
-            x = tensor(x, dtype)
-            return x.reshape((b * t, 1) + tuple(x.shape[2:]))
+        with span("forecast.pc"):
+            seg = tensor(pc_in["seg"])
+            b, t = seg.shape[:2]
 
-        # The camera matrices stay where the caller has them: the 4x4
-        # chain is computed on the host.
-        def cam(x):
-            return torch.as_tensor(x, dtype=f32).repeat_interleave(t, 0)
+            def flat(x, dtype=None):
+                x = tensor(x, dtype)
+                return x.reshape((b * t, 1) + tuple(x.shape[2:]))
 
-        rep = pc_transform_predict(
-            flat(seg), flat(pc_in["depth"], f32), flat(pc_in["depth_mask"]),
-            cam(pc_in["intrinsics"]), cam(pc_in["extrinsics"]),
-            torch.as_tensor(pc_in["target_T"], dtype=f32).reshape(b * t, 1, 4, 4),
-            height=height, width=width, device=dev,
-        )
-        rep_seg = rep["seg"].reshape(b, t, height, width)
-        rep_depth = rep["depth"].reshape(b, t, height, width)
+            # The camera matrices stay where the caller has them: the 4x4
+            # chain is computed on the host.
+            def cam(x):
+                return torch.as_tensor(x, dtype=f32).repeat_interleave(t, 0)
+
+            rep = pc_transform_predict(
+                flat(seg), flat(pc_in["depth"], f32), flat(pc_in["depth_mask"]),
+                cam(pc_in["intrinsics"]), cam(pc_in["extrinsics"]),
+                torch.as_tensor(pc_in["target_T"], dtype=f32).reshape(b * t, 1, 4, 4),
+                height=height, width=width, device=dev,
+            )
+            rep_seg = rep["seg"].reshape(b, t, height, width)
+            rep_depth = rep["depth"].reshape(b, t, height, width)
 
         # ---- 2. background ----------------------------------------------
-        bg_seg = bg_model(
-            {"seg": rep_seg, "depth": rep_depth.clamp(min=0.0),
-             "depth_mask": rep_depth > 0},
-            return_argmax=True,
-        )
-        # Combined z-buffer depth over the input frames; empty -> 1e9 so
-        # instances always paint there (fusion strict-< rule).
-        inf = torch.full_like(rep_depth, float("inf"))
-        bg_depth = torch.where(rep_depth > 0, rep_depth, inf).amin(1)
-        bg_depth = torch.where(torch.isfinite(bg_depth), bg_depth, 1e9)
+        with span("forecast.bg"):
+            bg_seg = bg_model(
+                {"seg": rep_seg, "depth": rep_depth.clamp(min=0.0),
+                 "depth_mask": rep_depth > 0},
+                return_argmax=True,
+            )
+            # Combined z-buffer depth over the input frames; empty -> 1e9
+            # so instances always paint there (fusion strict-< rule).
+            inf = torch.full_like(rep_depth, float("inf"))
+            bg_depth = torch.where(rep_depth > 0, rep_depth, inf).amin(1)
+            bg_depth = torch.where(torch.isfinite(bg_depth), bg_depth, 1e9)
 
         # ---- 3. foreground rollout --------------------------------------
-        n = tensor(fg_in["trajectories"]).shape[1]
-        flat_in = {
-            k: tensor(v).reshape((b * n,) + tuple(tensor(v).shape[2:]))
-            for k, v in fg_in.items() if k != "valid"
-        }
-        preds = fg_model(flat_in, out_t)
-        traj = preds["unnormalized_trajectory"][:, -out_t:]
-        oidx = flat_in["output_inds"].long()
-        sel = traj[torch.arange(b * n, device=dev), oidx]
-        boxes = sel[..., :4]
-        if not fg_model.use_bbox_ulbr:
-            boxes = bbox_cwh_to_ulbr(boxes)
-        inst_depth = (sel[..., fg_model.traj_dim] if fg_model.use_depth_inp
-                      else sel.new_zeros(sel.shape[:1]))
-        masks = torch.sigmoid(preds["masks"])
-        mh = masks.shape[-1]
-        masks = masks.reshape(b, n, mh, mh)
-        boxes = boxes.reshape(b, n, 4).to(f32)
-        inst_depth = inst_depth.reshape(b, n).to(f32)
+        with span("forecast.fg"):
+            n = tensor(fg_in["trajectories"]).shape[1]
+            flat_in = {
+                k: tensor(v).reshape((b * n,) + tuple(tensor(v).shape[2:]))
+                for k, v in fg_in.items() if k != "valid"
+            }
+            preds = fg_model(flat_in, out_t)
+            traj = preds["unnormalized_trajectory"][:, -out_t:]
+            oidx = flat_in["output_inds"].long()
+            sel = traj[torch.arange(b * n, device=dev), oidx]
+            boxes = sel[..., :4]
+            if not fg_model.use_bbox_ulbr:
+                boxes = bbox_cwh_to_ulbr(boxes)
+            inst_depth = (sel[..., fg_model.traj_dim] if fg_model.use_depth_inp
+                          else sel.new_zeros(sel.shape[:1]))
+            masks = torch.sigmoid(preds["masks"])
+            mh = masks.shape[-1]
+            masks = masks.reshape(b, n, mh, mh)
+            boxes = boxes.reshape(b, n, 4).to(f32)
+            inst_depth = inst_depth.reshape(b, n).to(f32)
 
         # ---- 4. fusion ---------------------------------------------------
-        classes = tensor(fg_in["classes"]).reshape(b, n).long()
-        valid = tensor(fg_in["valid"]).reshape(b, n).bool()
-        canvas = torch.where(bg_seg >= N_STUFF, 255, bg_seg).to(torch.int32)
-        fusion_depth = bg_depth if use_bg_depth else torch.full_like(bg_depth, 1e9)
-        pans, ids_all = [], []
-        for i in range(b):
-            order, ids = _instance_ids(
-                classes[i], inst_depth[i], valid[i], fg_model.use_depth_sorting
-            )
-            pan, _ = paste_and_composite(
-                masks[i][order], boxes[i][order], inst_depth[i][order], ids,
-                valid[i][order], canvas[i], fusion_depth[i],
-                img_h=height, img_w=width, threshold=threshold,
-                use_depth=fg_model.use_depth_sorting and use_bg_depth,
-            )
-            # ids back to ORIGINAL slot order, pairing with bbox/depths.
-            ids_slot = torch.zeros_like(ids)
-            ids_slot[order] = ids
-            pans.append(pan)
-            ids_all.append(ids_slot)
-        return {
-            "panoptic": torch.stack(pans),
-            "ids": torch.stack(ids_all),
-            "bg_seg": bg_seg,
-            "bg_depth": bg_depth,
-            "bbox": boxes,
-            "depths": inst_depth,
-        }
+        with span("forecast.fusion"):
+            classes = tensor(fg_in["classes"]).reshape(b, n).long()
+            valid = tensor(fg_in["valid"]).reshape(b, n).bool()
+            canvas = torch.where(bg_seg >= N_STUFF, 255, bg_seg).to(torch.int32)
+            fusion_depth = bg_depth if use_bg_depth else torch.full_like(bg_depth, 1e9)
+            pans, ids_all = [], []
+            for i in range(b):
+                order, ids = _instance_ids(
+                    classes[i], inst_depth[i], valid[i], fg_model.use_depth_sorting
+                )
+                pan, _ = paste_and_composite(
+                    masks[i][order], boxes[i][order], inst_depth[i][order], ids,
+                    valid[i][order], canvas[i], fusion_depth[i],
+                    img_h=height, img_w=width, threshold=threshold,
+                    use_depth=fg_model.use_depth_sorting and use_bg_depth,
+                )
+                # ids back to ORIGINAL slot order, pairing with bbox/depths.
+                ids_slot = torch.zeros_like(ids)
+                ids_slot[order] = ids
+                pans.append(pan)
+                ids_all.append(ids_slot)
+            return {
+                "panoptic": torch.stack(pans),
+                "ids": torch.stack(ids_all),
+                "bg_seg": bg_seg,
+                "bg_depth": bg_depth,
+                "bbox": boxes,
+                "depths": inst_depth,
+            }
 
     return step

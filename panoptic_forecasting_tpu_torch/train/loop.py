@@ -25,7 +25,11 @@ resumed run draws the samples a straight run would (the JAX trainer
 starts a fresh loader on resume); a state without it starts the loader
 afresh, as JAX does. ``training.profile_dir`` writes a ``torch.profiler``
 trace of the first ``profile_steps`` steps; ``training.verbose`` prints
-each batch's loss (a host sync a batch).
+each batch's loss (a host sync a batch). While a profiler records, each
+training batch is the span ``pf.train.data`` (the loader's ``next()``),
+then ``pf.train.step`` holding ``pf.train.to_device``, ``.forward``,
+``.backward`` and, on an optimizer step, ``.optim`` (``core/tracing.py``);
+validation has none.
 
 In a distributed run (``parallel/mesh.py``) every rank trains on its
 rows of the JAX mesh's global batch, which ``training.batch_size`` must
@@ -49,6 +53,7 @@ import numpy as np
 import torch
 
 from ..core import checkpoint as ckpt
+from ..core.tracing import span, spanned
 from ..models.base import init_weights
 from ..parallel import mesh
 from .optim import build_optimizer, lr_for_epoch
@@ -206,25 +211,31 @@ def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
         model.train()
         opt.zero_grad()
         sums, micro = _Sums(), 0
-        for batch_ind, batch in enumerate(train_loader):
-            sharded = batch.pop("sharded", False)
-            with mesh.sharded_batch(sharded):
-                mean_loss, metrics = model.loss(to_device(batch, device))
-            (mean_loss / accum).backward()
-            micro += 1
-            if micro == accum:
-                mesh.all_reduce_grads(opt.params, average=not model.loss_adds_over_shards)
-                opt.step()
-                opt.zero_grad()
-                micro = 0
-                step += 1
-            sums.add(metrics, sharded)
+        for batch_ind, batch in enumerate(spanned(train_loader, "train.data")):
+            with span("train.step"):
+                sharded = batch.pop("sharded", False)
+                with span("train.to_device"):
+                    inputs = to_device(batch, device)
+                with span("train.forward"), mesh.sharded_batch(sharded):
+                    mean_loss, metrics = model.loss(inputs)
+                with span("train.backward"):
+                    (mean_loss / accum).backward()
+                micro += 1
+                if micro == accum:
+                    with span("train.optim"):
+                        mesh.all_reduce_grads(opt.params,
+                                              average=not model.loss_adds_over_shards)
+                        opt.step()
+                        opt.zero_grad()
+                    micro = 0
+                    step += 1
+                sums.add(metrics, sharded)
+                if verbose:
+                    loss = metrics["loss"].detach()
+                    print(f"\tBATCH {batch_ind + 1}: {float(loss.mean()):.6f}")
             if prof is not None and batch_ind + 1 >= profile_steps:
                 _stop_profiler(prof, profile_dir, device)
                 prof = None
-            if verbose:
-                loss = metrics["loss"].detach()
-                print(f"\tBATCH {batch_ind + 1}: {float(loss.mean()):.6f}")
         if prof is not None:  # epoch shorter than profile_steps
             _stop_profiler(prof, profile_dir, device)
             prof = None
