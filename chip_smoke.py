@@ -278,13 +278,27 @@ Phases (any failure exits non-zero):
      and the pc fetch on the adaptive fixture with the PNG reads as the
      port made them before ``native`` (the plain codec, file by file)
      and through ``native``.
+ 21. the step's inputs (``eval/inputs.py``: each host input copied once
+     into pinned memory, a DMA a pc map, the fg and fusion inputs packed
+     in one copy after bg is launched) at 1024x2048 with 8 and 32 slots:
+     over 24 frames of 4 scenes, once with a synchronize after each call
+     and once with none, every output bit-equal to the same step fed the
+     inputs already on the device (which stages nothing); the counters,
+     the copies a frame; the CUDA calls that block the host in a
+     profiled step, by ``pf.*`` span; the host pass alone, the DMA alone
+     (GB/s), the pc staging's host ms and the fg staging's, packed and an
+     input a copy; 8 calls of the inputs issued behind a sleep of the
+     copy stream, each bit-equal to its inputs (the pinned memory's reuse
+     guard; ``[inputs]`` lines; readings under the JSON's ``inputs``).
+     ``python3 chip_smoke.py --inputs`` builds K1 and K2 and runs this
+     phase alone.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (both K1 entry points, K2 and its bf16 entry, K3 and each K4
 probe) and the CLI's, the scoring's, the staged chain's, the training's
 (bg's under ``train.bg``, data parallelism's under ``train.dp``),
-phase 18's readings (``bf16``), phase 19's (``data_options``) and phase
-20's (``native_io``), and last
+phase 18's readings (``bf16``), phase 19's (``data_options``), phase
+20's (``native_io``) and phase 21's (``inputs``), and last
 a JSON line
 {"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
@@ -324,7 +338,7 @@ from panoptic_forecasting_tpu_torch.core.config import Config, load_config
 from panoptic_forecasting_tpu_torch.data import io as data_io, pc_data, png, synthetic
 from panoptic_forecasting_tpu_torch.data.cityscapes import id_to_train_id_lut
 from panoptic_forecasting_tpu_torch.data.io import load_png, save_png
-from panoptic_forecasting_tpu_torch.eval import build_forecast_step
+from panoptic_forecasting_tpu_torch.eval import build_forecast_step, inputs as step_inputs
 from panoptic_forecasting_tpu_torch.eval.panoptic_protocol import (
     convert_gt_split, relabel_panoptic_trainid_to_labelid,
 )
@@ -416,10 +430,11 @@ def make_models(device, height: int = H, width: int = W):
     return bg, fg.to(device)
 
 
-def make_inputs(height: int, width: int):
+def make_inputs(height: int, width: int, n: int = N_INST, seed: int = SEED):
     """Synthetic pc + fg inputs (numpy), as bench.py::measure_fused makes
-    them: random stuff labels, depths 2-52 m, a car driving ~8 m/s."""
-    rng = np.random.RandomState(SEED)
+    them: random stuff labels, depths 2-52 m, a car driving ~8 m/s, ``n``
+    instance slots."""
+    rng = np.random.RandomState(seed)
     s = width / 2048.0
     seg = rng.randint(0, 11, size=(1, T_IN, height, width)).astype(np.int32)
     depth = (rng.rand(1, T_IN, height, width) * 50 + 2).astype(np.float32)
@@ -434,7 +449,7 @@ def make_inputs(height: int, width: int):
         "depth_mask": np.ones_like(depth, bool),
         "intrinsics": K[None], "extrinsics": E[None], "target_T": Ts[None],
     }
-    n, t_all = N_INST, T_IN + OUT_T
+    t_all = T_IN + OUT_T
     box0 = np.stack([rng.uniform(300, 1750, n), rng.uniform(350, 650, n),
                      rng.uniform(60, 250, n), rng.uniform(60, 250, n)], -1) * s
     vel = rng.uniform(-8, 8, (n, 4)) * s
@@ -3866,6 +3881,204 @@ def native_io_phase(root, fixtures, cli_files, build_s, train_readings, refs):
     print(f"[native] phase 20 took {readings['phase_s']:.1f} s")
     return readings
 
+STAGE_FRAMES = 24  # phase 21: frames of each mode, over 4 scenes
+GUARD_CALLS = 8  # phase 21: calls issued behind one long sleep of the copy stream
+GUARD_SLEEP = 3_000_000_000  # its clock cycles: 1.5-2 s on an H100
+
+
+def on_device(pc_in, fg_in, dev):
+    """The step's inputs with every map the device reads already there
+    (the camera matrices stay on the host, where the step reads them)."""
+    return ({k: torch.as_tensor(v).to(dev) if k in step_inputs.PC_KEYS else v
+             for k, v in pc_in.items()},
+            {k: torch.as_tensor(v).to(dev) for k, v in fg_in.items()})
+
+
+def stage_rates(dev, pc_in, fg_in):
+    """GB/s of the host pass alone (the pc maps into pinned tensors, as
+    the step stages them: torch's copy on the intra-op threads, and on
+    one), of one DMA of the pc bytes from pinned and from pageable memory;
+    host ms of the pc staging (host pass + DMAs + wait), and of the fg
+    staging packed in one copy (the step's) and an input a copy."""
+    host = {k: torch.as_tensor(pc_in[k]) for k in step_inputs.PC_KEYS}
+    pinned = {k: torch.empty(a.shape, dtype=torch.float32 if k == "depth" else a.dtype,
+                             pin_memory=True) for k, a in host.items()}
+    nbytes = sum(t.numel() * t.element_size() for t in pinned.values())
+
+    def fill_all():
+        for k, t in pinned.items():
+            t.copy_(host[k])
+
+    threads = torch.get_num_threads()
+    out = {"pc_bytes": nbytes, "intra_op_threads": threads,
+           "fill_gbs": nbytes / host_ms(fill_all, 10, 2) / 1e6}
+    torch.set_num_threads(1)
+    out["fill_gbs_1_thread"] = nbytes / host_ms(fill_all, 10, 2) / 1e6
+    torch.set_num_threads(threads)
+    flat = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out["dma_gbs"] = nbytes / time_ms(
+        lambda: dst.copy_(flat, non_blocking=True), 10, 2) / 1e6
+    pageable = torch.ones(nbytes, dtype=torch.uint8)
+    out["pageable_gbs"] = nbytes / time_ms(lambda: dst.copy_(pageable), 10, 2) / 1e6
+    probe = step_inputs.Inputs(dev)
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    out["pc_stage_ms"] = host_ms(synced(lambda: probe.pc(pc_in)), 10, 2)
+    out["fg_stage_ms"] = host_ms(synced(lambda: probe.fg(fg_in)), 10, 2)
+    out["fg_stage_ms_per_input"] = host_ms(synced(lambda: {
+        k: torch.as_tensor(v).pin_memory().to(dev, non_blocking=True)
+        for k, v in fg_in.items()}), 10, 2)
+    return out
+
+
+def reuse_guard(dev, scenes):
+    """Calls of the step's inputs issued while the copy stream still runs
+    the earlier calls' copies (a sleep put before them): each call's host
+    pass must not overwrite the pinned memory that a pending copy reads.
+    -> the counters and whether the copies were still pending after the
+    last call; raises unless every call's device tensors equal its inputs."""
+    inp = step_inputs.Inputs(dev)
+    with torch.cuda.stream(inp.stream):
+        torch.cuda._sleep(GUARD_SLEEP)
+    outs = []
+    for i in range(GUARD_CALLS):
+        pc_in, fg_in = scenes[i % len(scenes)]
+        outs.append((inp.pc(pc_in), inp.fg(fg_in)))
+    pending = not inp.stream.query()
+    torch.cuda.synchronize()
+    for i, ((seg, depth, mask), fg_out) in enumerate(outs):
+        pc_in, fg_in = scenes[i % len(scenes)]
+        want = [torch.as_tensor(pc_in["seg"]), torch.as_tensor(pc_in["depth"]).float(),
+                torch.as_tensor(pc_in["depth_mask"])]
+        want += [torch.as_tensor(fg_in[k]) for k in fg_in]
+        got = [seg, depth, mask] + [fg_out[k] for k in fg_in]
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise SystemExit(f"[inputs] call {i} behind pending copies: its device "
+                             "inputs differ from its host inputs")
+    if not pending or inp.counters["reuse_waits"] != GUARD_CALLS:
+        raise SystemExit(f"[inputs] the copies did not outlast the calls (pending {pending}, "
+                         f"counters {inp.counters}): lengthen GUARD_SLEEP")
+    return {"counters": dict(inp.counters), "pending_after_last_call": pending}
+
+
+def host_syncs(step, scene):
+    """The CUDA runtime calls that block the host in one profiled step
+    (synchronizes and blocking copies), by the innermost ``pf.*`` span
+    that holds each ("outside" for none)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    step(*scene)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(*scene)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.name.startswith("pf.")]
+    out = {}
+    for e in events:
+        if "Synchronize" not in e.name and e.name != "cudaMemcpy":
+            continue
+        t = e.time_range.start
+        held = [sp for sp in spans if sp[0] <= t <= sp[1]]
+        where = min(held, key=lambda sp: sp[1] - sp[0])[2] if held else "outside"
+        out.setdefault(where, {}).setdefault(e.name, 0)
+        out[where][e.name] += 1
+    return out
+
+
+def equal_steps(got, want) -> bool:
+    return sorted(got) == sorted(want) and all(
+        torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+
+
+def inputs_phase(dev, card):
+    """Phase 21: the forecast step's inputs through pinned memory."""
+    bg, fg = make_models(dev)
+    readings = {"card": card}
+    for n in (8, 32):
+        scenes = [make_inputs(H, W, n=n, seed=SEED + 100 * n + i) for i in range(4)]
+        fed = [on_device(pc, f, dev) for pc, f in scenes]
+        ref_step = build_forecast_step(bg, fg, height=H, width=W, out_t=OUT_T)
+        want = [{k: v.cpu() for k, v in ref_step(*s).items()} for s in fed]
+        again = [{k: v.cpu() for k, v in ref_step(*s).items()} for s in fed]
+        if not all(equal_steps(a, w) for a, w in zip(again, want)):
+            raise SystemExit(f"[inputs] {n} slots: the device-fed step is not repeatable")
+        fed_counts = dict(ref_step.counters)
+        if fed_counts["bytes_staged"] or fed_counts["htod_copies"]:
+            raise SystemExit(f"[inputs] device-resident inputs were staged: {fed_counts}")
+        step = build_forecast_step(bg, fg, height=H, width=W, out_t=OUT_T)
+        step(*scenes[0])
+        torch.cuda.synchronize()
+        modes = {}
+        for mode in ("synced", "unsynced"):
+            before = dict(step.counters)
+            outs = []
+            for i in range(STAGE_FRAMES):
+                outs.append(step(*scenes[i % 4]))
+                if mode == "synced":
+                    torch.cuda.synchronize()
+                    outs[-1] = {k: v.cpu() for k, v in outs[-1].items()}
+            torch.cuda.synchronize()
+            bad = [i for i, o in enumerate(outs) if not equal_steps(o, want[i % 4])]
+            if bad:
+                raise SystemExit(f"[inputs] {n} slots, {mode}: frames {bad} differ from "
+                                 "the device-fed step")
+            counts = {k: step.counters[k] - before[k] for k in step.counters}
+            modes[mode] = counts
+            print(f"[inputs] {n} slots, {mode}: {STAGE_FRAMES} frames bit-equal to the "
+                  f"device-fed step; counters {json.dumps(counts)}; HtoD copies a frame "
+                  f"{counts['htod_copies'] / STAGE_FRAMES:.2f}, bytes staged a frame "
+                  f"{counts['bytes_staged'] / STAGE_FRAMES:.0f}")
+            del outs
+        frame_ms = {}
+        for name, call in (("host", lambda: step(*scenes[0])),
+                           ("device", lambda: ref_step(*fed[0]))):
+            frame_ms[name] = host_ms(lambda: call()["panoptic"].cpu(), 20, 3)
+        syncs = host_syncs(step, scenes[0])
+        print(f"[inputs] {n} slots: host-blocking CUDA calls in a step, by span "
+              + json.dumps(syncs))
+        rates = stage_rates(dev, *scenes[0])
+        guard = reuse_guard(dev, scenes)
+        print(f"[inputs] {n} slots: frame ms (panoptic on the host) from host inputs "
+              f"{frame_ms['host']:.3f}, from device inputs {frame_ms['device']:.3f}; "
+              f"pc bytes {rates['pc_bytes']}, host pass {rates['fill_gbs']:.2f} GB/s on "
+              f"{rates['intra_op_threads']} intra-op threads, "
+              f"{rates['fill_gbs_1_thread']:.2f} on one; pinned DMA "
+              f"{rates['dma_gbs']:.2f} GB/s, pageable copy {rates['pageable_gbs']:.2f} GB/s")
+        print(f"[inputs] {n} slots: staging host ms, pc {rates['pc_stage_ms']:.3f}, fg "
+              f"packed in one copy {rates['fg_stage_ms']:.3f}, fg an input a copy "
+              f"{rates['fg_stage_ms_per_input']:.3f}")
+        print(f"[inputs] {n} slots: {GUARD_CALLS} calls behind pending copies bit-equal to "
+              f"their inputs; counters {json.dumps(guard['counters'])}")
+        readings[f"slots{n}"] = {"modes": modes, "fed_counters": fed_counts,
+                                 "frame_ms": frame_ms, "host_syncs": syncs,
+                                 "reuse_guard": guard, **rates}
+        del scenes, fed, want, again, step, ref_step
+    print(card)
+    return readings
+
+
+def inputs_main() -> int:
+    """``chip_smoke.py --inputs``: phase 21 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build(["placement", "stem"], verbose=True)
+    readings = inputs_phase(torch.device("cuda"), card_line())
+    print(json.dumps({"inputs": readings}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4130,6 +4343,7 @@ def main() -> int:
                                            cli_readings)
         native_readings = native_io_phase(root, fixtures, cli_files,
                                           secs["native_io"], train_readings, refs)
+    inputs_readings = inputs_phase(dev, card)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
@@ -4234,7 +4448,7 @@ def main() -> int:
                                      "png_decode_ms", "thing_pixels")},
         "score": score_readings, "staged": staged_readings, "train": train_readings,
         "bf16": bf16_readings, "data_options": data_readings,
-        "native_io": native_readings}))
+        "native_io": native_readings, "inputs": inputs_readings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4244,4 +4458,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_worker(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--inputs"]:
+        sys.exit(inputs_main())
     sys.exit(main())

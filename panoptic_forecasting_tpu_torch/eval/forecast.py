@@ -15,10 +15,16 @@ frame the step:
      forecasts ulbr boxes (``use_bbox_ulbr``); the instance depth is the
      column after the box state (4 under ``only_loc_feats``, else 8).
 
+The inputs reach the device through ``eval/inputs.py``: on a CUDA device
+each host input is copied once into pinned memory, each pc map's DMA
+overlapping the next map's host pass, the fg and fusion inputs packed in
+one copy issued after bg is launched.
+
 While a ``torch.profiler`` records, a call is the span ``pf.forecast``
 and its stages the spans ``pf.forecast.pc``, ``.bg``, ``.fg`` and
 ``.fusion`` (``core/tracing.py``); each input's copy to the device is
-launched in the stage that reads it.
+launched in the stage that reads it, its host pass in the span
+``pf.forecast.stage`` inside that stage.
 
 Reference capability: the chained scripts of
 ``scripts/fg/run_fg_eval_panoptic.sh`` (pc export -> bg export ->
@@ -36,6 +42,7 @@ from ..device import DeviceLike, resolve_device
 from ..geometry.boxes import bbox_cwh_to_ulbr
 from ..kernels.mask_paste import paste_and_composite
 from ..models.pc_transform import pc_transform_predict
+from .inputs import Inputs
 
 N_STUFF = 11  # bg classes >= 11 are things: they become 255 in the canvas
 
@@ -74,7 +81,8 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
       extrinsics (B, 4, 4), target_T (B, T, 4, 4).
     fg_in: the dense padded fg-scene inputs (trajectories, bbox_masks,
       bbox_vel_masks, depths, depth_masks, feats, odometry, classes,
-      output_inds, valid) with leading (B, N). numpy arrays or tensors.
+      output_inds, valid) with leading (B, N). numpy arrays or tensors; a
+      tensor already on the step's device is read where it lies.
 
     The result holds ``panoptic`` (B, H, W) int32 trainId·1000+inst maps,
     ``bg_seg``, ``bg_depth``, and ``ids``/``bbox``/``depths`` indexed by
@@ -82,6 +90,9 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
     0 for padded slots). ``use_bg_depth`` z-buffers instances against the
     reprojected depth; by default (as in the reference's shipped data)
     instances always paint over the background.
+
+    ``step.counters`` counts the calls and how their inputs reached the
+    device (``eval/inputs.py::Inputs``).
     """
     dev = resolve_device(device)
     for name, model in (("bg_model", bg_model), ("fg_model", fg_model)):
@@ -89,9 +100,7 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
         if p.device.type != dev.type:
             raise ValueError(f"{name} lives on {p.device}, the step on {dev}")
 
-    def tensor(x, dtype=None):
-        t = torch.as_tensor(x, device=dev)
-        return t.to(dtype) if dtype is not None else t
+    inputs = Inputs(dev)
 
     @torch.no_grad()
     def step(pc_in: Dict[str, Any], fg_in: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -103,11 +112,10 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
 
         # ---- 1. per-frame reprojection (reference ind0/1/2 exports) -----
         with span("forecast.pc"):
-            seg = tensor(pc_in["seg"])
+            seg, depth, depth_mask = inputs.pc(pc_in)
             b, t = seg.shape[:2]
 
-            def flat(x, dtype=None):
-                x = tensor(x, dtype)
+            def flat(x):
                 return x.reshape((b * t, 1) + tuple(x.shape[2:]))
 
             # The camera matrices stay where the caller has them: the 4x4
@@ -116,7 +124,7 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
                 return torch.as_tensor(x, dtype=f32).repeat_interleave(t, 0)
 
             rep = pc_transform_predict(
-                flat(seg), flat(pc_in["depth"], f32), flat(pc_in["depth_mask"]),
+                flat(seg), flat(depth), flat(depth_mask),
                 cam(pc_in["intrinsics"]), cam(pc_in["extrinsics"]),
                 torch.as_tensor(pc_in["target_T"], dtype=f32).reshape(b * t, 1, 4, 4),
                 height=height, width=width, device=dev,
@@ -139,11 +147,10 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
 
         # ---- 3. foreground rollout --------------------------------------
         with span("forecast.fg"):
-            n = tensor(fg_in["trajectories"]).shape[1]
-            flat_in = {
-                k: tensor(v).reshape((b * n,) + tuple(tensor(v).shape[2:]))
-                for k, v in fg_in.items() if k != "valid"
-            }
+            fg_dev = inputs.fg(fg_in)
+            n = fg_dev["trajectories"].shape[1]
+            flat_in = {k: v.reshape((b * n,) + tuple(v.shape[2:]))
+                       for k, v in fg_dev.items() if k != "valid"}
             preds = fg_model(flat_in, out_t)
             traj = preds["unnormalized_trajectory"][:, -out_t:]
             oidx = flat_in["output_inds"].long()
@@ -161,8 +168,8 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
 
         # ---- 4. fusion ---------------------------------------------------
         with span("forecast.fusion"):
-            classes = tensor(fg_in["classes"]).reshape(b, n).long()
-            valid = tensor(fg_in["valid"]).reshape(b, n).bool()
+            classes = fg_dev["classes"].reshape(b, n).long()
+            valid = fg_dev["valid"].reshape(b, n).bool()
             canvas = torch.where(bg_seg >= N_STUFF, 255, bg_seg).to(torch.int32)
             fusion_depth = bg_depth if use_bg_depth else torch.full_like(bg_depth, 1e9)
             pans, ids_all = [], []
@@ -190,4 +197,5 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
                 "depths": inst_depth,
             }
 
+    step.counters = inputs.counters
     return step

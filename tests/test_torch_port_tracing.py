@@ -131,9 +131,13 @@ def test_forecast_spans_nest_in_order_and_change_no_output(tmp_path):
     traced = step(pc_in, fg_in)
     prof.stop()
     got = spans(prof, tmp_path / "t.json")
-    assert [n for n, *_ in got] == ["pf.forecast"] + STAGES
-    outer, stages = got[0], got[1:]
+    assert [n for n, *_ in got] == ["pf.forecast", "pf.forecast.pc", "pf.forecast.stage",
+                                    "pf.forecast.bg", "pf.forecast.fg", "pf.forecast.stage",
+                                    "pf.forecast.fusion"]
+    outer, stages = got[0], [s for s in got if s[0] in STAGES]
     assert all(inside(s, outer) for s in stages)
+    # the inputs' host passes, each inside the stage that reads them
+    assert inside(got[2], got[1]) and inside(got[5], got[4])
     assert all(a[2] <= b[1] for a, b in zip(stages, stages[1:]))
     assert sorted(traced) == sorted(untraced)
     for k in untraced:
