@@ -292,13 +292,40 @@ Phases (any failure exits non-zero):
      guard; ``[inputs]`` lines; readings under the JSON's ``inputs``).
      ``python3 chip_smoke.py --inputs`` builds K1 and K2 and runs this
      phase alone.
+ 22. bg training's step replayed from CUDA graphs (``train/graph.py``)
+     at the benchmark's pool8 shape (FCHarDNet-70, batch 8 of 800x800,
+     SGD, clip-norm 5, f32) on 12 seeded batches: one ``train()`` run
+     graphed against three eager ones from the same weights (the eager
+     runs with the graphs' seam set aside), cuDNN's default algorithms:
+     the counters 1 capture, 11 replays, the first step eager; the final
+     state (relative L2) and the step losses (mean relative gap) no
+     farther from each eager run than twice the eager runs' own spread
+     (cuDNN's weight gradient is not bit-deterministic), the first losses
+     equal; host ms a step untraced, peak memory; kernels a step in a
+     device-only trace equal graphed and eager (memsets, copies and the
+     kinds whose counts differ printed), and in a trace with host events
+     the kernels and memsets launched in each ``pf.train.*`` span a step,
+     those of ``pf.train.optim`` equal and not 0. Then 2 epochs of 3
+     steps under ``lr_decay_type: step`` (the rate a tenth in epoch 2)
+     with cuDNN's deterministic algorithms: graphed bit-equal to eager,
+     the update graph captured again once; held at epoch 1's rate, not
+     equal. Then
+     ``portbench/control.py`` on ``bg_train.pool8``: the program's run
+     correct and each of the cell's training faults caught by its check
+     (``[graph]`` lines; readings under the JSON's ``graph``). Phases
+     15-17 print each run's step-graph counters: odom and fg (Adam) every
+     step eager under ``optimizer``, bg replayed after its first step,
+     every data-parallel run eager under ``ranks``. ``python3
+     chip_smoke.py --graphs`` runs this phase alone, ``--training``
+     phases 15-17 and 22.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (both K1 entry points, K2 and its bf16 entry, K3 and each K4
 probe) and the CLI's, the scoring's, the staged chain's, the training's
 (bg's under ``train.bg``, data parallelism's under ``train.dp``),
 phase 18's readings (``bf16``), phase 19's (``data_options``), phase
-20's (``native_io``) and phase 21's (``inputs``), and last
+20's (``native_io``), phase 21's (``inputs``) and phase 22's
+(``graph``), and last
 a JSON line
 {"ok": true, "device": {...}}. Exits non-zero without a result when
 CUDA is unavailable.
@@ -318,6 +345,7 @@ import sys
 import tempfile
 import time
 import zlib
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -366,6 +394,7 @@ from panoptic_forecasting_tpu_torch.models.pc_transform import (
 )
 from panoptic_forecasting_tpu_torch.parallel import mesh
 from panoptic_forecasting_tpu_torch.scripts import prof_minwin, prof_strided_load
+from panoptic_forecasting_tpu_torch.train import graph as step_graph, loop as train_loop
 from panoptic_forecasting_tpu_torch.train.loop import to_device
 from panoptic_forecasting_tpu_torch.train.optim import build_optimizer
 from panoptic_forecasting_tpu_torch.scripts._timing import (
@@ -2140,6 +2169,11 @@ def train_phase(dev, root, card, refs):
           f"apart relative (limit 1e-3), parameters at most {resume_param_gap:.3e}")
     if not resume_gap < 1e-3:
         raise SystemExit("the resumed fg epoch differs from the straight run's")
+    graphs = {"odom": odom["graph"], "fg": fg["graph"], "fg_resumed": resumed["graph"]}
+    print(f"[train] step graphs (Adam keeps its step count on the host: every step "
+          f"eager): {json.dumps(graphs)}")
+    if any(c["eager"]["optimizer"] != c["steps"] or not c["steps"] for c in graphs.values()):
+        raise SystemExit(f"an Adam run did not keep every step eager: {graphs}")
     launched = {k: v for k, v in {**odom_launches, **fg_launches,
                                   **resume_launches}.items() if v}
     print(f"[train] kernel launches while training: "
@@ -2180,7 +2214,7 @@ def train_phase(dev, root, card, refs):
                 "gpu_cpu_losses": step_losses, "gpu_cpu_loss_rel": rel,
                 "gpu_cpu_grad_rel": grad_rel, "gpu_cpu_param_excess": excess,
                 "launches": {"odom": odom_launches, "fg": fg_launches,
-                             "fg_resumed": resume_launches},
+                             "fg_resumed": resume_launches}, "graph": graphs,
                 "phase_s": phase_s}
     print(f"[train] phase 15 took {phase_s:.1f} s")
     return readings
@@ -2368,6 +2402,13 @@ def bg_train_phase(dev, root, card, refs):
             or tracked != 3 * BG_STEPS or not momentum):
         raise SystemExit("the resumed bg run did not continue from the saved step, "
                          "BN statistics and SGD momentum")
+    graphs = {"first": first["graph"], "resumed": resumed["graph"],
+              "straight": straight["graph"]}
+    print(f"[train] bg step graphs (the first step of each run eager, the rest "
+          f"replayed): {json.dumps(graphs)}")
+    if any((c["captures"], c["replays"], c["eager"]["first_step"]) != (1, c["steps"] - 1, 1)
+           for c in graphs.values()):
+        raise SystemExit(f"the bg runs were not replayed after their first step: {graphs}")
     gap = max(abs(resumed["history"][0][split]["loss"]
                   - straight["history"][2][split]["loss"])
               / abs(straight["history"][2][split]["loss"]) for split in ("train", "val"))
@@ -2446,7 +2487,8 @@ def bg_train_phase(dev, root, card, refs):
     readings = {"step": step, "loader_ms": load, "fixture_s": fixture_s,
                 "cli_s": first_s, "resume_s": resume_s, "train_samples": samples,
                 "resume_loss_gap": gap, "resume_state_gap": param_gap,
-                "launches": launches, "gpu_cpu_losses": losses, "gpu_cpu_loss_rel": rel,
+                "launches": launches, "graph": graphs, "gpu_cpu_losses": losses,
+                "gpu_cpu_loss_rel": rel,
                 "gpu_cpu_stat_gap": stat_gap, "gpu_f64_grad_gap": card_gap,
                 "cpu_f64_grad_gap": cpu_gap, "grad_l2": l2, "grad_excess": excess,
                 "serve": {"launches": k2, "batches": batches, "frames": frames,
@@ -2623,7 +2665,8 @@ def dp_worker(spec_path: str, rank: int) -> int:
             "secs": time.perf_counter() - ts, "launches": read_counts(),
             "history": result["history"], "step": result["step"],
             "state": cpu_state(result["model"]), "writes": writes[n_writes:],
-            "backend": dist.get_backend(), "world": dist.get_world_size()}
+            "graph": result["graph"], "backend": dist.get_backend(),
+            "world": dist.get_world_size()}
         mesh.barrier()
     for name, argv in spec.get("first_steps", {}).items():
         for dtype in (torch.float32,) + ((torch.float64,) if name in FLOAT64_HELD else ()):
@@ -2782,9 +2825,13 @@ def dp_phase(dev, root, card, refs):
                   and all(torch.equal(got_best[k], best[k]) for k in best))
     print(f"[dp] (a) cli.train --distributed, backend {nccl['backend']}, world "
           f"{nccl['world']}: bg 2 epochs of {BG_STEPS} steps in {nccl['secs']:.1f} s, losses "
-          f"and best_model bit-equal to phase 16's run: {nccl_equal}; launches "
+          f"and best_model bit-equal to phase 16's run (its steps replayed from graphs "
+          f"after the first, these eager): {nccl_equal}; step graphs "
+          f"{json.dumps(nccl['graph'])}; launches "
           f"{json.dumps(nccl['launches'])}")
     failures = []  # every reading is printed before the phase fails
+    if nccl["graph"]["eager"]["ranks"] != nccl["graph"]["steps"]:
+        failures.append(f"the NCCL run replayed steps: {nccl['graph']}")
     if nccl["backend"] != "nccl" or nccl["world"] != 1 or not nccl_equal:
         failures.append("the NCCL run at world size 1 is not phase 16's run")
     if any(nccl["launches"].values()):
@@ -2877,6 +2924,13 @@ def dp_phase(dev, root, card, refs):
           f"{json.dumps({k: sum(sum(r.values()) for r in v.values()) for k, v in launches.items()})}")
     if any(writes.values()) or any(missing.values()):
         failures.append("rank 1 wrote a file, or rank 0 did not write its files")
+    graphs = {name: {r: res[name]["graph"] for r, res in enumerate((r0, r1))}
+              for name in writes}
+    print(f"[dp] (b) step graphs (a process group: every step eager): "
+          f"{json.dumps(graphs)}")
+    if any(c["eager"]["ranks"] != c["steps"] or not c["steps"]
+           for run in graphs.values() for c in run.values()):
+        failures.append("a two-rank run replayed steps")
     if any(v for run in launches.values() for r in run.values() for v in r.values()):
         failures.append("two-rank training launched a kernel of the port")
 
@@ -2914,7 +2968,7 @@ def dp_phase(dev, root, card, refs):
         failures.append("the measured bg steps were not sharded alike")
     phase_s = time.perf_counter() - ts0
     readings = {"nccl": {"backend": nccl["backend"], "bit_equal": nccl_equal,
-                         "secs": nccl["secs"]},
+                         "secs": nccl["secs"], "graph": nccl["graph"]}, "graph": graphs,
                 "gaps": gaps, "resume_loss_gap": resume_gap,
                 "serve": {"launches": k2, "batches": batches, "pixels": pixels,
                           "pixels_apart": apart, "near_tie": apart_tie},
@@ -4064,6 +4118,361 @@ def inputs_phase(dev, card):
     return readings
 
 
+# ---- 22. the bg step replayed from CUDA graphs -----------------------------------
+
+GRAPH_STEPS = 12  # batches of each pool8-shaped run
+# steps [first, end) timed on the host clock untraced, traced on the device
+# alone, and traced with the host's events; a step apart, so that no
+# profiler starts inside a span opened under another (core/tracing.py)
+GRAPH_TIMED, GRAPH_LIGHT, GRAPH_FULL = (2, 6), (6, 8), (9, 11)
+GRAPH_LR_STEPS = 3  # steps of each epoch of the learning-rate runs
+GRAPH_EAGER_RUNS = 3  # eager runs whose spread the graphed one is held to
+GRAPH_FAULT_SEED = 2**31 + 24  # seed of the pool8 check's program and fault runs
+
+
+def graph_cfg(wd, **training):
+    """bg_train.yaml's step at pool8's shape: FCHarDNet-70 on 3 one-hot +
+    depth frames, batch 8 of 800x800, SGD (momentum 0.9, decay 1e-4),
+    clip-norm 5, f32; one epoch and no validation unless ``training``
+    says otherwise."""
+    return {"task": "bg", "seed": SEED, "working_dir": wd,
+            "data": dict(BG_CFG["data"], crop_size=800),
+            "model": dict(BG_CFG["model"]),
+            "training": dict({"batch_size": 8, "num_epochs": 1, "lr": 2e-3, "mom": 0.9,
+                              "wd": 1e-4, "clip_grad_norm": 5.0, "val_interval": 100},
+                             **training)}
+
+
+def graph_batches(n, seed, size=800, batch=8):
+    """``n`` batches in the bg train loader's format: trainId segs (uint8,
+    3 frames), raw uint16 depth, GT with 255 where things are."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        gt = rng.integers(0, 11, (batch, size, size), dtype=np.uint8)
+        gt[:, : size // 4, : size // 3] = 255
+        out.append({"inputs": {
+            "seg": rng.integers(0, 11, (batch, T_IN, size, size), dtype=np.uint8),
+            "depth": rng.integers(300, 50000, (batch, T_IN, size, size), dtype=np.uint16)},
+            "labels": {"seg": gt}})
+    return out
+
+
+class GraphData:
+    """Task data over epochs of fixed batches (each batch a fresh dict).
+    The loader stamps the host clock as it hands out each batch and, from
+    batch ``light[0]`` to ``light[1]`` and from ``full[0]`` to
+    ``full[1]`` (counted over the run), records the steps between with
+    ``torch.profiler``: the device alone, then with the host's events."""
+
+    def __init__(self, epochs, light=None, full=None):
+        self.epochs, self.datasets = epochs, {"train": None}
+        self.light, self.full = light, full
+        self.stamps, self.traces, self.i, self.prof = [], {}, 0, None
+
+    def loader(self, split, cfg, seed=0, shard=True):
+        return self
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def _edge(self):
+        torch.cuda.synchronize()
+        time.sleep(0.002)  # CUPTI keeps whole records away from the edges
+
+    def __iter__(self):
+        acts = torch.profiler.ProfilerActivity
+        for b in self.epochs[self.epoch - 1]:
+            for name, win, kinds in (("light", self.light, [acts.CUDA]),
+                                     ("full", self.full, [acts.CPU, acts.CUDA])):
+                if win and self.i == win[1]:
+                    self._edge()
+                    self.prof.stop()
+                    with tempfile.TemporaryDirectory() as tmp:
+                        path = os.path.join(tmp, "trace.json")
+                        self.prof.export_chrome_trace(path)
+                        with open(path) as f:
+                            self.traces[name] = json.load(f)["traceEvents"]
+                if win and self.i == win[0]:
+                    self._edge()
+                    self.prof = torch.profiler.profile(activities=kinds)
+                    self.prof.start()
+                    time.sleep(0.002)
+            self.stamps.append(time.perf_counter())
+            self.i += 1
+            yield dict(b)
+
+
+def trace_counts(events, steps):
+    """Kernels, memsets, copies, and each kind of kernel and memset a
+    step of a trace; with host events, the kernels and memsets launched
+    in each ``pf.train.*`` span a step (by the runtime call that launched
+    them, ``cudaGraphLaunch`` for a graph's)."""
+    x = [e for e in events if e.get("ph") == "X"]
+    ops = [e for e in x if e.get("cat") in ("kernel", "gpu_memset")]
+    out = {"kernels": sum(e["cat"] == "kernel" for e in ops) / steps,
+           "memsets": sum(e["cat"] == "gpu_memset" for e in ops) / steps,
+           "copies": sum(e.get("cat") == "gpu_memcpy" for e in x) / steps,
+           "names": {n: c / steps for n, c in Counter(e["name"] for e in ops).items()}}
+    launch = {e["args"]["correlation"]: e["ts"] for e in x
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    if not launch:
+        return out
+    for name in ("pf.train.to_device", "pf.train.forward", "pf.train.backward",
+                 "pf.train.optim"):
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in x
+                 if e["name"] == name and e.get("cat") == "user_annotation"]
+        at = [launch.get(e.get("args", {}).get("correlation")) for e in ops]
+        n = sum(1 for t in at if t is not None and any(a <= t <= b for a, b in spans))
+        out[name] = n / max(len(spans), 1)
+        out[name + ".spans"] = len(spans)
+    return out
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Within the block ``train()`` keeps every step eager: the step
+    graphs' seam names a device type no device has (the reason counted
+    is ``cpu``, the one for a device the graphs do not capture on)."""
+    kept = step_graph.DEVICE_TYPE
+    step_graph.DEVICE_TYPE = "none"
+    try:
+        yield
+    finally:
+        step_graph.DEVICE_TYPE = kept
+
+
+@contextlib.contextmanager
+def recorded_losses(out):
+    """Each step's loss, as the trainer adds it to its sums, into ``out``."""
+    add = train_loop._Sums.add
+
+    def recording(self, metrics, sharded=False):
+        out.append(metrics["loss"].detach().clone())
+        return add(self, metrics, sharded)
+
+    train_loop._Sums.add = recording
+    try:
+        yield
+    finally:
+        train_loop._Sums.add = add
+
+
+def graph_run(dev, root, name, epochs, graphed, **training):
+    """``train()`` of a pool8-shaped bg model over ``epochs`` -> (result,
+    final state on the host, each step's loss, the task data, peak GiB)."""
+    wd = os.path.join(root, name)
+    cfg = graph_cfg(wd, **training)
+    model = BGModel(cfg, depth_stats=DEPTH_STATS, device=dev)
+    data = epochs if isinstance(epochs, GraphData) else GraphData(epochs)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with recorded_losses(losses), (contextlib.nullcontext() if graphed else eager_steps()):
+        out = train_loop.train(model, data, cfg)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    state = cpu_state(model)
+    losses = torch.stack(losses).double().cpu()
+    del model, out["model"]
+    torch.cuda.empty_cache()
+    return out, state, losses, data, peak
+
+
+def state_rel(a, b):
+    """Relative L2 distance of two states over their float tensors."""
+    keys = [k for k in b if b[k].is_floating_point()]
+    num = sum(float((a[k].double() - b[k].double()).square().sum()) for k in keys)
+    return (num / sum(float(b[k].double().square().sum()) for k in keys)) ** 0.5
+
+
+def loss_rel(a, b):
+    """Mean relative gap of two runs' step losses."""
+    return float(((a - b).abs() / b.abs()).mean())
+
+
+def pool8_check(seed):
+    """portbench/control.py on bg_train.pool8: the program's run and each
+    fault of ``portbench/harness/faults.py`` through the cell's check ->
+    {what: (correct, numbers)}."""
+    from portbench.harness.faults import FAULTS
+
+    faults = ",".join(FAULTS["bg_train"])
+    cmd = [sys.executable, os.path.join(REPO, "portbench", "control.py"), "--workload",
+           "bg_train.pool8", "--seeds", str(seed), "--faults", faults,
+           "--fault-seeds", str(seed), "--seconds", "2"]
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+    if run.returncode:
+        raise SystemExit(f"[graph] portbench/control.py failed:\n{run.stderr[-4000:]}")
+    lines = [json.loads(l) for l in run.stdout.splitlines() if l.startswith("{")]
+    return {l["what"]: (l["correct"], l["numbers"]) for l in lines}
+
+
+def graph_phase(dev, root, card):
+    """Phase 22: bg training's step replayed from CUDA graphs at pool8's
+    shape, against eager runs of the same weights and batches."""
+    ts0 = time.perf_counter()
+    batches = graph_batches(GRAPH_STEPS, SEED + 22)
+    failures = []  # every reading is printed before the phase fails
+
+    # (a) 12 steps graphed against eager runs (cuDNN's default algorithms,
+    # as the benchmark runs: its weight gradients are not bit-deterministic)
+    runs = {}
+    for i in range(GRAPH_EAGER_RUNS):
+        traced = i == 0
+        data = GraphData([batches], GRAPH_LIGHT if traced else None,
+                         GRAPH_FULL if traced else None)
+        runs[f"eager{i}"] = graph_run(dev, root, f"graph_eager{i}", data, False)
+    data = GraphData([batches], GRAPH_LIGHT, GRAPH_FULL)
+    runs["graphed"] = graph_run(dev, root, "graph_graphed", data, True)
+    eager = [k for k in runs if k.startswith("eager")]
+    pairs = [(a, b) for j, a in enumerate(eager) for b in eager[j + 1:]]
+    spread = {"state": max(state_rel(runs[a][1], runs[b][1]) for a, b in pairs),
+              "loss": max(loss_rel(runs[a][2], runs[b][2]) for a, b in pairs)}
+    apart = {"state": max(state_rel(runs["graphed"][1], runs[a][1]) for a in eager),
+             "loss": max(loss_rel(runs["graphed"][2], runs[a][2]) for a in eager)}
+    first_equal = all(float(runs[k][2][0]) == float(runs["eager0"][2][0]) for k in runs)
+    counters = runs["graphed"][0]["graph"]
+    eager_counters = runs["eager0"][0]["graph"]
+    print(f"[graph] {GRAPH_STEPS} steps at batch 8 of 800x800 (SGD, clip-norm 5): graphed "
+          f"counters {json.dumps(counters)}; eager {json.dumps(eager_counters)}")
+    print(f"[graph] graphed against {len(eager)} eager runs: state {apart['state']:.3e} "
+          f"relative L2 at most, step losses {apart['loss']:.3e} apart relative (mean over "
+          f"the steps) at most; the eager "
+          f"runs' spread {spread['state']:.3e} / {spread['loss']:.3e} (limit twice "
+          f"it); first losses equal {first_equal}; losses graphed "
+          f"{[round(float(x), 6) for x in runs['graphed'][2]]}")
+    if (counters["captures"], counters["replays"], counters["eager"]["first_step"],
+            counters["steps"]) != (1, GRAPH_STEPS - 1, 1, GRAPH_STEPS):
+        failures.append(f"graphed counters {counters}")
+    if eager_counters["eager"]["cpu"] != GRAPH_STEPS:
+        failures.append(f"eager counters {eager_counters}")
+    if not (apart["state"] <= 2 * spread["state"] and apart["loss"] <= 2 * spread["loss"]
+            and first_equal):
+        failures.append("the graphed run is outside the eager runs' spread")
+
+    ms = {}
+    for k in ("eager0", "graphed"):
+        st = runs[k][3].stamps
+        ms[k] = 1e3 * (st[GRAPH_TIMED[1]] - st[GRAPH_TIMED[0]]) / (GRAPH_TIMED[1]
+                                                                  - GRAPH_TIMED[0])
+    counts = {k: {w: trace_counts(runs[k][3].traces[w], GRAPH_LIGHT[1] - GRAPH_LIGHT[0]
+                                  if w == "light" else GRAPH_FULL[1] - GRAPH_FULL[0])
+                  for w in ("light", "full")} for k in ("eager0", "graphed")}
+    peaks = {k: runs[k][4] for k in ("eager0", "graphed")}
+    print(f"[graph] host ms a step (steps {GRAPH_TIMED[0] + 1}-{GRAPH_TIMED[1]}, untraced, "
+          f"the batch's pageable copy synchronising each): eager {ms['eager0']:.2f}, "
+          f"graphed {ms['graphed']:.2f}; peak GiB above earlier tensors: eager "
+          f"{peaks['eager0']:.2f}, graphed {peaks['graphed']:.2f} | {card}")
+    names = {k: {w: counts[k][w].pop("names") for w in ("light", "full")} for k in counts}
+    differ = {n[:90]: (names["eager0"]["light"].get(n, 0), names["graphed"]["light"].get(n, 0))
+              for n in set(names["eager0"]["light"]) | set(names["graphed"]["light"])
+              if names["eager0"]["light"].get(n) != names["graphed"]["light"].get(n)}
+    print(f"[graph] kernels / memsets a step, light trace: eager "
+          f"{counts['eager0']['light']['kernels']} / {counts['eager0']['light']['memsets']}, "
+          f"graphed {counts['graphed']['light']['kernels']} / "
+          f"{counts['graphed']['light']['memsets']}; kinds whose count a step differs "
+          f"(eager, graphed): {json.dumps(differ)}; full trace, by launching span: eager "
+          f"{json.dumps(counts['eager0']['full'])}, graphed "
+          f"{json.dumps(counts['graphed']['full'])}")
+    if counts["eager0"]["light"]["kernels"] != counts["graphed"]["light"]["kernels"]:
+        failures.append("the light trace's kernels a step differ graphed and eager")
+    g, e = counts["graphed"]["full"], counts["eager0"]["full"]
+    if not (g.get("pf.train.optim", 0) > 0 and g.get("pf.train.optim") == e.get(
+            "pf.train.optim") and g.get("pf.train.optim.spans") == GRAPH_FULL[1]
+            - GRAPH_FULL[0]):
+        failures.append("the optimizer's kernels do not fall under pf.train.optim")
+    del runs
+
+    # (b) the rate: 2 epochs under lr_decay_type step (a tenth in epoch 2),
+    # cuDNN deterministic: graphed bit-equal to eager; with the update graph
+    # held at its first rate, not
+    lr_batches = graph_batches(2 * GRAPH_LR_STEPS, SEED + 122)
+    epochs = [lr_batches[:GRAPH_LR_STEPS], lr_batches[GRAPH_LR_STEPS:]]
+    sched = dict(num_epochs=2, lr_decay_type="step", lr_decay_steps=1, lr_decay_factor=0.1)
+    lr_runs = {}
+    with cudnn_deterministic():
+        for name, graphed in (("eager", False), ("graphed", True)):
+            lr_runs[name] = graph_run(dev, root, f"graph_lr_{name}", epochs, graphed, **sched)
+        held = step_graph.StepGraphs._lrs
+        step_graph.StepGraphs._lrs = lambda self: (2e-3,)
+        try:
+            lr_runs["held"] = graph_run(dev, root, "graph_lr_held", epochs, True, **sched)
+        finally:
+            step_graph.StepGraphs._lrs = held
+    (_, se, le, _, _), (gg, sg, lg, _, _) = lr_runs["eager"], lr_runs["graphed"]
+    sh = lr_runs["held"][1]
+    lr_equal = all(torch.equal(sg[k], se[k]) for k in se) and torch.equal(lg, le)
+    held_apart = state_rel(sh, se)
+    print(f"[graph] 2 epochs x {GRAPH_LR_STEPS} steps, the rate a tenth in epoch 2 (cuDNN "
+          f"deterministic): graphed counters {json.dumps(gg['graph'])}; state and losses "
+          f"bit-equal to eager: {lr_equal}; with the update graph held at epoch 1's rate "
+          f"the state is {held_apart:.3e} relative L2 from eager")
+    if not lr_equal or gg["graph"]["optim_captures"] != 1 or not held_apart > 0:
+        failures.append("the epoch's rate did not reach the replayed step")
+    del lr_runs
+
+    # (c) the pool8 check, graphed: the program correct, each fault caught
+    checks = pool8_check(GRAPH_FAULT_SEED)
+    for what, (correct, numbers) in checks.items():
+        print(f"[graph] pool8 check, {what}: correct {correct}, "
+              + ", ".join(f"{k} {v:.4g}" for k, v in numbers.items()))
+    if (not checks.get("program", (False,))[0] or len(checks) != 4
+            or any(c for w, (c, _) in checks.items() if w != "program")):
+        failures.append(f"the pool8 check: {checks}")
+    phase_s = time.perf_counter() - ts0
+    print(f"[graph] phase 22 took {phase_s:.1f} s")
+    if failures:
+        raise SystemExit("[graph] " + "; ".join(failures))
+    return {"counters": counters, "eager_counters": eager_counters, "apart": apart,
+            "spread": spread, "host_ms": ms, "trace_counts": counts,
+            "kinds_differ": differ, "peak_gib": peaks,
+            "lr": {"counters": gg["graph"], "bit_equal": lr_equal,
+                   "held_apart": held_apart},
+            "pool8_check": {w: {"correct": c, "numbers": n} for w, (c, n) in checks.items()},
+            "phase_s": phase_s, "card": card}
+
+
+def training_main() -> int:
+    """``chip_smoke.py --training``: phases 15-17 and 22 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build(["placement", "stem", "native_io"], verbose=True)
+    dev, card = torch.device("cuda"), card_line()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        refs = {}
+        readings = train_phase(dev, root, card, refs)
+        readings["bg"] = bg_train_phase(dev, root, card, refs)
+        readings["dp"] = dp_phase(dev, root, card, refs)
+        readings["graph"] = graph_phase(dev, root, card)
+    print(json.dumps({"train": readings}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def graphs_main() -> int:
+    """``chip_smoke.py --graphs``: phase 22 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as root:
+        readings = graph_phase(torch.device("cuda"), root, card_line())
+    print(json.dumps({"graph": readings}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def inputs_main() -> int:
     """``chip_smoke.py --inputs``: phase 21 alone."""
     if not torch.cuda.is_available():
@@ -4344,6 +4753,8 @@ def main() -> int:
         native_readings = native_io_phase(root, fixtures, cli_files,
                                           secs["native_io"], train_readings, refs)
     inputs_readings = inputs_phase(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as root:
+        graph_readings = graph_phase(dev, root, card)
 
     n, g = group.numel(), num_groups
     k1_bound, k1_by = bound_ms(4 * n * 2 + 4 * g, n)
@@ -4448,7 +4859,8 @@ def main() -> int:
                                      "png_decode_ms", "thing_pixels")},
         "score": score_readings, "staged": staged_readings, "train": train_readings,
         "bf16": bf16_readings, "data_options": data_readings,
-        "native_io": native_readings, "inputs": inputs_readings}))
+        "native_io": native_readings, "inputs": inputs_readings,
+        "graph": graph_readings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4460,4 +4872,8 @@ if __name__ == "__main__":
         sys.exit(dp_worker(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--inputs"]:
         sys.exit(inputs_main())
+    if sys.argv[1:2] == ["--graphs"]:
+        sys.exit(graphs_main())
+    if sys.argv[1:2] == ["--training"]:
+        sys.exit(training_main())
     sys.exit(main())

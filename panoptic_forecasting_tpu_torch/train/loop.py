@@ -29,7 +29,11 @@ each batch's loss (a host sync a batch). While a profiler records, each
 training batch is the span ``pf.train.data`` (the loader's ``next()``),
 then ``pf.train.step`` holding ``pf.train.to_device``, ``.forward``,
 ``.backward`` and, on an optimizer step, ``.optim`` (``core/tracing.py``);
-validation has none.
+validation has none. Where the step can be replayed (a CUDA device, no
+process group, no accumulation, SGD, a batch of the captured shapes), every
+step after the first runs from CUDA graphs in those spans
+(``train/graph.py``); the result's ``graph`` counts replays and eager
+steps by reason.
 
 In a distributed run (``parallel/mesh.py``) every rank trains on its
 rows of the JAX mesh's global batch, which ``training.batch_size`` must
@@ -56,6 +60,7 @@ from ..core import checkpoint as ckpt
 from ..core.tracing import span, spanned
 from ..models.base import init_weights
 from ..parallel import mesh
+from .graph import StepGraphs
 from .optim import build_optimizer, lr_for_epoch
 
 
@@ -143,7 +148,8 @@ def _stop_profiler(prof, profile_dir: str, device: torch.device) -> None:
 def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
           writers=None) -> Dict[str, Any]:
     """Train ``model`` (on its device) on ``task_data``; returns the model,
-    best val result and epoch, step count and the per-epoch history."""
+    best val result and epoch, step count, the per-epoch history and the
+    step graphs' counters (``graph``)."""
     t = cfg.get("training", {})
     num_epochs = int(t.get("num_epochs", 100))
     val_interval = int(t.get("val_interval", 1))
@@ -197,6 +203,7 @@ def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
                     sums.add(model.loss(to_device(batch, device))[1], sharded)
         return sums.means()
 
+    graphs = StepGraphs(model, opt, accum)
     profile_dir = t.get("profile_dir")
     profile_steps = int(t.get("profile_steps", 5))
     prof = None
@@ -214,25 +221,34 @@ def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
         for batch_ind, batch in enumerate(spanned(train_loader, "train.data")):
             with span("train.step"):
                 sharded = batch.pop("sharded", False)
-                with span("train.to_device"):
-                    inputs = to_device(batch, device)
-                with span("train.forward"), mesh.sharded_batch(sharded):
-                    mean_loss, metrics = model.loss(inputs)
-                with span("train.backward"):
-                    (mean_loss / accum).backward()
-                micro += 1
-                if micro == accum:
-                    with span("train.optim"):
-                        mesh.all_reduce_grads(opt.params,
-                                              average=not model.loss_adds_over_shards)
-                        opt.step()
-                        opt.zero_grad()
-                    micro = 0
+                if graphs.replays(batch):
+                    metrics = graphs.step()
                     step += 1
+                else:
+                    with span("train.to_device"):
+                        inputs = to_device(batch, device)
+                    with span("train.forward"), mesh.sharded_batch(sharded):
+                        mean_loss, metrics = model.loss(inputs)
+                    with span("train.backward"):
+                        (mean_loss / accum).backward()
+                    del mean_loss
+                    micro += 1
+                    if micro == accum:
+                        with span("train.optim"):
+                            mesh.all_reduce_grads(opt.params,
+                                                  average=not model.loss_adds_over_shards)
+                            opt.step()
+                            opt.zero_grad()
+                        micro = 0
+                        step += 1
                 sums.add(metrics, sharded)
                 if verbose:
                     loss = metrics["loss"].detach()
                     print(f"\tBATCH {batch_ind + 1}: {float(loss.mean()):.6f}")
+                # An eager step's autograd graph dies with it: a capture would
+                # reuse its gradient accumulators, which launch on the stream
+                # they were made on (the default one, which cannot join a capture)
+                del metrics
             if prof is not None and batch_ind + 1 >= profile_steps:
                 _stop_profiler(prof, profile_dir, device)
                 prof = None
@@ -281,4 +297,5 @@ def train(model: torch.nn.Module, task_data, cfg: Dict[str, Any],
         "best_val_epoch": best_val_epoch,
         "step": step,
         "history": history,
+        "graph": graphs.counters,
     }

@@ -18,7 +18,8 @@ Jobs:
   rules, per-rank BN statistics and the mean of per-rank loss means;
 * ``train``: ``cli.train.main`` with the coordinator flags; rank 1
   records every file it opens for writing, creates or renames under the
-  working dir (``sys.addaudithook``).
+  working dir (``sys.addaudithook``); with ``stand_in`` the step graphs'
+  capture is stood in for on the CPU (``test_torch_port_train_graph.py``).
 """
 
 import os
@@ -145,12 +146,17 @@ def train(spec, rank):
 
     if rank != 0:
         sys.addaudithook(audit)
+    if spec.get("stand_in"):  # the step graphs' capture stood in for on the CPU
+        from panoptic_forecasting_tpu_torch.train import graph
+
+        graph.DEVICE_TYPE = "cpu"
+        graph.capture = lambda fn, pool=None: (fn, pool)
     result = train_cli.main(spec["argv"] + dist_flags(spec, rank))
     found = list(writes)  # before this rank's own result file is written
     return {"history": result["history"], "step": result["step"],
             "best_val_epoch": result["best_val_epoch"],
             "state": {k: v.detach().clone() for k, v in result["model"].state_dict().items()},
-            "writes": found}
+            "writes": found, "graph": result["graph"]}
 
 
 JOBS = {"rendezvous": rendezvous, "step": step, "train": train}
