@@ -279,17 +279,17 @@ Phases (any failure exits non-zero):
      port made them before ``native`` (the plain codec, file by file)
      and through ``native``.
  21. the step's inputs (``eval/inputs.py``: each host input copied once
-     into pinned memory, a DMA a pc map, the fg and fusion inputs packed
-     in one copy after bg is launched) at 1024x2048 with 8 and 32 slots:
+     into its own pinned tensor and moved by its own DMA, the fg and
+     fusion inputs after bg is launched) at 1024x2048 with 8 and 32 slots:
      over 24 frames of 4 scenes, once with a synchronize after each call
      and once with none, every output bit-equal to the same step fed the
      inputs already on the device (which stages nothing); the counters,
      the copies a frame; the CUDA calls that block the host in a
      profiled step, by ``pf.*`` span; the host pass alone, the DMA alone
-     (GB/s), the pc staging's host ms and the fg staging's, packed and an
-     input a copy; 8 calls of the inputs issued behind a sleep of the
-     copy stream, each bit-equal to its inputs (the pinned memory's reuse
-     guard; ``[inputs]`` lines; readings under the JSON's ``inputs``).
+     (GB/s), the pc staging's host ms and the fg staging's; 8 calls of
+     the inputs issued behind a sleep of the copy stream, each bit-equal
+     to its inputs (the pinned memory's reuse guard; ``[inputs]`` lines;
+     readings under the JSON's ``inputs``).
      ``python3 chip_smoke.py --inputs`` builds K1 and K2 and runs this
      phase alone.
  22. bg training's step replayed from CUDA graphs (``train/graph.py``)
@@ -3952,8 +3952,8 @@ def stage_rates(dev, pc_in, fg_in):
     """GB/s of the host pass alone (the pc maps into pinned tensors, as
     the step stages them: torch's copy on the intra-op threads, and on
     one), of one DMA of the pc bytes from pinned and from pageable memory;
-    host ms of the pc staging (host pass + DMAs + wait), and of the fg
-    staging packed in one copy (the step's) and an input a copy."""
+    host ms of the pc staging (host pass + DMAs + wait) and of the fg
+    staging."""
     host = {k: torch.as_tensor(pc_in[k]) for k in step_inputs.PC_KEYS}
     pinned = {k: torch.empty(a.shape, dtype=torch.float32 if k == "depth" else a.dtype,
                              pin_memory=True) for k, a in host.items()}
@@ -3985,9 +3985,6 @@ def stage_rates(dev, pc_in, fg_in):
 
     out["pc_stage_ms"] = host_ms(synced(lambda: probe.pc(pc_in)), 10, 2)
     out["fg_stage_ms"] = host_ms(synced(lambda: probe.fg(fg_in)), 10, 2)
-    out["fg_stage_ms_per_input"] = host_ms(synced(lambda: {
-        k: torch.as_tensor(v).pin_memory().to(dev, non_blocking=True)
-        for k, v in fg_in.items()}), 10, 2)
     return out
 
 
@@ -4106,8 +4103,7 @@ def inputs_phase(dev, card):
               f"{rates['fill_gbs_1_thread']:.2f} on one; pinned DMA "
               f"{rates['dma_gbs']:.2f} GB/s, pageable copy {rates['pageable_gbs']:.2f} GB/s")
         print(f"[inputs] {n} slots: staging host ms, pc {rates['pc_stage_ms']:.3f}, fg "
-              f"packed in one copy {rates['fg_stage_ms']:.3f}, fg an input a copy "
-              f"{rates['fg_stage_ms_per_input']:.3f}")
+              f"{rates['fg_stage_ms']:.3f}")
         print(f"[inputs] {n} slots: {GUARD_CALLS} calls behind pending copies bit-equal to "
               f"their inputs; counters {json.dumps(guard['counters'])}")
         readings[f"slots{n}"] = {"modes": modes, "fed_counters": fed_counts,

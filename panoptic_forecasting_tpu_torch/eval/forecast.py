@@ -8,17 +8,19 @@ frame the step:
   2. runs FCHarDNet-70 over the one-hot + depth stack and takes the
      argmax (K2 computes the fused stem on the folded model; a bf16
      model's K2 writes bf16, and the argmax is taken on f32 logits);
-  3. rolls the foreground GRU + ConvLSTM forward and runs the mask head;
-  4. orders the instances far to near, assigns per-class visit-order ids
-     ((class + 11)·1000 + rank), and pastes and composites them over the
-     background. Boxes are converted cwh -> ulbr unless the fg model
-     forecasts ulbr boxes (``use_bbox_ulbr``); the instance depth is the
-     column after the box state (4 under ``only_loc_feats``, else 8).
+  3. rolls the foreground GRU + ConvLSTM forward, runs the mask head and
+     picks each instance's box and depth (``eval/fusion.py``: boxes
+     converted cwh -> ulbr unless the fg model forecasts ulbr boxes, the
+     depth the column after the box state);
+  4. fuses the B scenes through ``eval/fusion.py`` in one call: the
+     instances ordered far to near with per-class visit-order ids
+     ((class + 11)·1000 + rank), pasted and composited over the
+     background, thing pixels of which become 255.
 
 The inputs reach the device through ``eval/inputs.py``: on a CUDA device
-each host input is copied once into pinned memory, each pc map's DMA
-overlapping the next map's host pass, the fg and fusion inputs packed in
-one copy issued after bg is launched.
+each host input is copied once into its own pinned tensor and moved by
+its own copy, each pc map's DMA overlapping the next map's host pass,
+the fg and fusion inputs staged after bg is launched.
 
 While a ``torch.profiler`` records, a call is the span ``pf.forecast``
 and its stages the spans ``pf.forecast.pc``, ``.bg``, ``.fg`` and
@@ -39,34 +41,9 @@ import torch
 
 from ..core.tracing import span
 from ..device import DeviceLike, resolve_device
-from ..geometry.boxes import bbox_cwh_to_ulbr
-from ..kernels.mask_paste import paste_and_composite
 from ..models.pc_transform import pc_transform_predict
+from .fusion import N_STUFF, _pred_boxes_depths, composite, visit_order
 from .inputs import Inputs
-
-N_STUFF = 11  # bg classes >= 11 are things: they become 255 in the canvas
-
-
-def _instance_ids(classes, depths, valid, use_depth_sorting: bool):
-    """Paint order + panoptic ids for one scene: far-to-near stable order,
-    id = (class + 11)·1000 + per-class visit rank; padded slots get 0."""
-    n = classes.shape[0]
-    if use_depth_sorting:
-        key = torch.where(valid, -depths, torch.full_like(depths, float("inf")))
-        order = torch.argsort(key, stable=True)
-    else:
-        order = torch.arange(n, device=classes.device)
-    cls_s = classes[order]
-    val_s = valid[order]
-    idx = torch.arange(n, device=classes.device)
-    earlier_same = (
-        (cls_s[None, :] == cls_s[:, None])
-        & (idx[None, :] < idx[:, None])
-        & val_s[None, :]
-    )
-    rank = earlier_same.sum(1)
-    ids = torch.where(val_s, (cls_s + N_STUFF) * 1000 + rank, 0).to(torch.int32)
-    return order, ids
 
 
 def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
@@ -151,46 +128,25 @@ def build_forecast_step(bg_model, fg_model, *, height: int, width: int,
             n = fg_dev["trajectories"].shape[1]
             flat_in = {k: v.reshape((b * n,) + tuple(v.shape[2:]))
                        for k, v in fg_dev.items() if k != "valid"}
-            preds = fg_model(flat_in, out_t)
-            traj = preds["unnormalized_trajectory"][:, -out_t:]
-            oidx = flat_in["output_inds"].long()
-            sel = traj[torch.arange(b * n, device=dev), oidx]
-            boxes = sel[..., :4]
-            if not fg_model.use_bbox_ulbr:
-                boxes = bbox_cwh_to_ulbr(boxes)
-            inst_depth = (sel[..., fg_model.traj_dim] if fg_model.use_depth_inp
-                          else sel.new_zeros(sel.shape[:1]))
+            preds = {k: v.reshape((b, n) + tuple(v.shape[1:]))
+                     for k, v in fg_model(flat_in, out_t).items()}
+            boxes, inst_depth = _pred_boxes_depths(fg_model, preds, fg_dev["output_inds"],
+                                                   out_t)
             masks = torch.sigmoid(preds["masks"])
-            mh = masks.shape[-1]
-            masks = masks.reshape(b, n, mh, mh)
-            boxes = boxes.reshape(b, n, 4).to(f32)
-            inst_depth = inst_depth.reshape(b, n).to(f32)
 
         # ---- 4. fusion ---------------------------------------------------
         with span("forecast.fusion"):
             classes = fg_dev["classes"].reshape(b, n).long()
             valid = fg_dev["valid"].reshape(b, n).bool()
             canvas = torch.where(bg_seg >= N_STUFF, 255, bg_seg).to(torch.int32)
-            fusion_depth = bg_depth if use_bg_depth else torch.full_like(bg_depth, 1e9)
-            pans, ids_all = [], []
-            for i in range(b):
-                order, ids = _instance_ids(
-                    classes[i], inst_depth[i], valid[i], fg_model.use_depth_sorting
-                )
-                pan, _ = paste_and_composite(
-                    masks[i][order], boxes[i][order], inst_depth[i][order], ids,
-                    valid[i][order], canvas[i], fusion_depth[i],
-                    img_h=height, img_w=width, threshold=threshold,
-                    use_depth=fg_model.use_depth_sorting and use_bg_depth,
-                )
-                # ids back to ORIGINAL slot order, pairing with bbox/depths.
-                ids_slot = torch.zeros_like(ids)
-                ids_slot[order] = ids
-                pans.append(pan)
-                ids_all.append(ids_slot)
+            sort = fg_model.use_depth_sorting
+            order, ids = visit_order(inst_depth, classes, valid, use_depth_sorting=sort)
+            pan, ids = composite(masks, boxes, inst_depth, valid, order, ids, canvas,
+                                 bg_depth if use_bg_depth else None,
+                                 use_depth_sorting=sort, threshold=threshold)
             return {
-                "panoptic": torch.stack(pans),
-                "ids": torch.stack(ids_all),
+                "panoptic": pan,
+                "ids": ids,
                 "bg_seg": bg_seg,
                 "bg_depth": bg_depth,
                 "bbox": boxes,

@@ -7,15 +7,18 @@ instances, sigmoid the mask logits, paste each 28×28 mask at its
 predicted box, threshold at 0.5 and composite far to near (descending
 predicted depth) over the background canvas.
 
-The visit order (a stable ``argsort`` of ``-depth``) and the ids stay on
-the host in numpy, as in JAX: panoptic ids are ``(class+11)·1000 + k``
-with per-class counters in visit order. Thing pixels (>= 11) of the
-canvas become 255 before the composite. With a background depth map the
-composite z-buffers against it (strict ``<``, unknown depth 1e9, and a
+The visit order and the ids are one batched device function,
+``visit_order``: far to near (a stable ``argsort`` of ``-depth``, padded
+slots last), and panoptic ids ``(class+11)·1000 + k`` with ``k`` the
+instance's rank among the valid instances of its class in visit order.
+``composite`` pastes and composites S scenes in that order in one call
+(``kernels/mask_paste.py::paste_and_composite_scenes``). The forecast
+step (``eval/forecast.py``) and the staged exports below both fuse
+through these two. Thing pixels (>= 11) of the canvas become 255 before
+the composite. With a background depth map the composite z-buffers
+against it (strict ``<``, unknown depth 1e9, and a
 ``background_depth_mask`` turns masked pixels unknown); otherwise later
-(nearer) instances overwrite. Everything pixel-sized runs on the fg
-model's device, the scenes of a batch in one composite
-(``kernels/mask_paste.py::paste_and_composite_scenes``).
+(nearer) instances overwrite.
 
 The model carries its weights, so the JAX functions' ``variables``
 argument has no counterpart.
@@ -32,6 +35,7 @@ from ..geometry.boxes import bbox_cwh_to_ulbr
 from ..kernels.mask_paste import paste_and_composite_scenes
 
 IMG_H, IMG_W = 1024, 2048
+N_STUFF = 11  # bg classes >= 11 are things: they become 255 in the panoptic canvas
 # batch inputs that are not per-instance model inputs
 NOT_MODEL_INPUTS = ("background", "background_depth", "background_depth_mask",
                     "valid", "inst_scores")
@@ -57,11 +61,11 @@ def _pred_boxes_depths(model, preds, output_inds, out_t):
     """Per-instance box (ULBR; converted from cwh unless the model
     forecasts ulbr) and depth (the column after the box state) at the
     requested output index of the forecast steps (``traj[:, :, -out_t:]``:
-    index 0 is the first forecast step). (S, N, 4) and (S, N) f32
-    tensors."""
+    index 0 is the first forecast step); ``output_inds`` (S, N), a tensor
+    or numpy. (S, N, 4) and (S, N) f32 tensors."""
     traj = preds["unnormalized_trajectory"][:, :, -out_t:]  # (S, N, out_t, D)
     s, n = traj.shape[:2]
-    idx = torch.as_tensor(np.asarray(output_inds).reshape(s, n), device=traj.device)
+    idx = torch.as_tensor(output_inds, device=traj.device).reshape(s, n)
     sel = torch.take_along_dim(traj, idx.long()[:, :, None, None], dim=2)[:, :, 0]
     boxes = sel[..., :4]
     if not model.use_bbox_ulbr:
@@ -71,45 +75,55 @@ def _pred_boxes_depths(model, preds, output_inds, out_t):
     return boxes.to(torch.float32), depths.to(torch.float32)
 
 
-def _order_and_ids(model, depths, classes, valid, panoptic):
-    """Host-side visit order + painted ids for one scene (tiny arrays)."""
-    n = depths.shape[0]
-    if model.use_depth_sorting:
-        order = np.argsort(np.where(valid, -depths, np.inf), kind="stable")
+def visit_order(depths, classes, valid, *, use_depth_sorting, panoptic=True):
+    """The paint order of S scenes' instances and their painted ids, on
+    the tensors' device: depths, classes, valid (S, N).
+
+    -> (order (S, N), ids (S, N) int32 in visit order). The order is a
+    stable argsort of ``-depth`` with padded slots last under
+    ``use_depth_sorting``, else slot order. An id is ``(class+11)·1000 +
+    rank`` with ``panoptic`` (rank: the count of earlier valid instances
+    of the class in visit order), else ``class+11``; 0 for padded slots."""
+    s, n = depths.shape
+    pos = torch.arange(n, device=depths.device)
+    if use_depth_sorting:
+        key = torch.where(valid, -depths, torch.full_like(depths, float("inf")))
+        order = torch.argsort(key, dim=1, stable=True)
     else:
-        order = np.arange(n)
-    ids = np.zeros(n, np.int64)
-    counters: Dict[int, int] = {}
-    for k in order:
-        if not valid[k]:
-            continue
-        cl = int(classes[k]) + 11
-        if panoptic:
-            c = counters.get(cl, 0)
-            counters[cl] = c + 1
-            ids[k] = cl * 1000 + c
-        else:
-            ids[k] = cl
-    return order, ids
+        order = pos.expand(s, n)
+    cls_s = torch.take_along_dim(classes, order, 1)
+    val_s = torch.take_along_dim(valid, order, 1)
+    ids = cls_s + N_STUFF
+    if panoptic:
+        earlier_same = ((cls_s[:, None, :] == cls_s[:, :, None])
+                        & (pos[None, :] < pos[:, None]) & val_s[:, None, :])
+        ids = ids * 1000 + earlier_same.sum(2)
+    return order, torch.where(val_s, ids, 0).to(torch.int32)
 
 
-def _composite(masks, boxes, depths, ids, valid, bg_labels, bg_depths,
-               orders, threshold, use_depth):
-    """The scenes' instances in visit order (``orders`` (S, N)) pasted
-    and composited on the masks' device -> (S, H, W) int32 numpy."""
-    dev = masks.device
-    s = masks.shape[0]
-    take = torch.arange(s, device=dev)[:, None]
-    o = torch.as_tensor(orders, device=dev)
-    img_h, img_w = bg_labels.shape[-2:]
+def composite(masks, boxes, depths, valid, order, ids, canvas, bg_depth=None, *,
+              use_depth_sorting, threshold=0.5):
+    """S scenes' instances pasted at their boxes and composited over
+    ``canvas`` (S, H, W) int32 in the visit order ``order``, in one call
+    on the tensors' device. masks (S, N, Hm, Wm) probabilities, boxes
+    (S, N, 4), depths and valid (S, N) in slot order; ids (S, N) in visit
+    order (``visit_order``). With ``bg_depth`` (S, H, W) and
+    ``use_depth_sorting`` an instance paints only where it is nearer
+    (depth <= 0 is unknown: 1e9).
+
+    -> (segs (S, H, W) int32, ids (S, N) in slot order)."""
+    rows = torch.arange(order.shape[0], device=order.device)[:, None]
+    img_h, img_w = canvas.shape[-2:]
+    use_depth = use_depth_sorting and bg_depth is not None
+    if bg_depth is None:
+        bg_depth = torch.full(canvas.shape, 1e9, dtype=torch.float32, device=canvas.device)
+    else:
+        bg_depth = torch.where(bg_depth > 0, bg_depth, 1e9)
     segs, _ = paste_and_composite_scenes(
-        masks[take, o], boxes[take, o], depths[take, o],
-        torch.as_tensor(np.take_along_axis(ids, orders, 1).astype(np.int32), device=dev),
-        torch.as_tensor(np.take_along_axis(valid, orders, 1), device=dev),
-        torch.as_tensor(np.asarray(bg_labels, np.int32), device=dev),
-        torch.as_tensor(np.asarray(bg_depths, np.float32), device=dev),
-        img_h=img_h, img_w=img_w, threshold=threshold, use_depth=use_depth)
-    return segs.cpu().numpy()
+        masks[rows, order], boxes[rows, order], depths[rows, order], ids,
+        valid[rows, order], canvas, bg_depth, img_h=img_h, img_w=img_w,
+        threshold=threshold, use_depth=use_depth)
+    return segs, torch.zeros_like(ids).scatter_(1, order, ids)
 
 
 def fuse_scenes(model, masks, boxes, depths, classes, valid, bg_labels,
@@ -120,35 +134,17 @@ def fuse_scenes(model, masks, boxes, depths, classes, valid, bg_labels,
     tensors on the device; classes, valid (S, N) and bg_labels (S, H, W)
     (and bg_depths) numpy. Returns (segs (S, H, W) int32, ids (S, N)):
     ``ids[b, k]`` is the painted id of instance k (0 for padded slots)."""
-    s, n = masks.shape[:2]
-    depths_np = depths.cpu().numpy()
-    orders = np.zeros((s, n), np.int64)
-    ids = np.zeros((s, n), np.int64)
-    for b in range(s):
-        orders[b], ids[b] = _order_and_ids(model, depths_np[b], classes[b],
-                                           valid[b], panoptic)
-    img_h, img_w = bg_labels.shape[-2:]
-    use_depth = bool(model.use_depth_sorting and bg_depths is not None)
-    if bg_depths is None:
-        bgd = np.full((s, img_h, img_w), 1e9, np.float32)
-    else:
-        bgd = np.asarray(bg_depths, np.float32)
-        bgd = np.where(bgd > 0, bgd, 1e9)
-    segs = _composite(masks, boxes, depths, ids, valid, bg_labels, bgd, orders,
-                      threshold, use_depth)
-    return segs, ids
-
-
-def fuse_scene(model, masks, boxes, depths, classes, valid, bg_labels,
-               bg_depth=None, panoptic=True, threshold=0.5):
-    """Composite one scene (the batched path with S = 1)."""
-    segs, ids = fuse_scenes(
-        model, masks[None], boxes[None], depths[None], classes[None],
-        valid[None], np.asarray(bg_labels)[None],
-        None if bg_depth is None else np.asarray(bg_depth)[None],
-        panoptic=panoptic, threshold=threshold,
-    )
-    return segs[0], ids[0]
+    dev = masks.device
+    valid = torch.as_tensor(np.asarray(valid, bool), device=dev)
+    order, ids = visit_order(depths, torch.as_tensor(np.asarray(classes), device=dev), valid,
+                             use_depth_sorting=model.use_depth_sorting, panoptic=panoptic)
+    if bg_depths is not None:
+        bg_depths = torch.as_tensor(np.asarray(bg_depths, np.float32), device=dev)
+    segs, ids = composite(masks, boxes, depths, valid, order, ids,
+                          torch.as_tensor(np.asarray(bg_labels, np.int32), device=dev),
+                          bg_depths, use_depth_sorting=model.use_depth_sorting,
+                          threshold=threshold)
+    return segs.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
 
 
 def _bg_depths_from_batch(batch) -> Optional[np.ndarray]:
@@ -183,7 +179,7 @@ def _canvas(batch, s, things_void):
     if backgrounds is None:
         return np.full((s, IMG_H, IMG_W), 255, np.int64)
     bg = np.asarray(backgrounds).astype(np.int64)
-    return np.where(bg >= 11, 255, bg) if things_void else bg
+    return np.where(bg >= N_STUFF, 255, bg) if things_void else bg
 
 
 def predict_panoptic(model, batch) -> Dict[str, Any]:
@@ -224,23 +220,18 @@ def predict_instances(model, batch) -> Dict[str, Any]:
     backgrounds = batch["inputs"].get("background")
     img_h, img_w = (np.asarray(backgrounds).shape[-2:] if backgrounds is not None
                     else (IMG_H, IMG_W))
+    dev = masks.device
+    valid_t = torch.as_tensor(valid, device=dev)
+    order, _ = visit_order(depths, torch.as_tensor(classes, device=dev), valid_t,
+                           use_depth_sorting=model.use_depth_sorting)
+    # visit ids, in visit order: (position + 1)·1000
+    visit_ids = torch.where(torch.take_along_dim(valid_t, order, 1),
+                            (torch.arange(n, device=dev) + 1) * 1000, 0).to(torch.int32)
+    segs, _ = composite(masks, boxes, depths, valid_t, order, visit_ids,
+                        torch.zeros((s, img_h, img_w), dtype=torch.int32, device=dev),
+                        use_depth_sorting=model.use_depth_sorting)
+    segs, orders = segs.cpu().numpy(), order.cpu().numpy()
     depths_np = depths.cpu().numpy()
-    orders = np.zeros((s, n), np.int64)
-    visit_ids = np.zeros((s, n), np.int64)  # ids in visit-position space
-    for b in range(s):
-        if model.use_depth_sorting:
-            orders[b] = np.argsort(np.where(valid[b], -depths_np[b], np.inf),
-                                   kind="stable")
-        else:
-            orders[b] = np.arange(n)
-        visit_ids[b] = np.where(valid[b][orders[b]], (np.arange(n) + 1) * 1000, 0)
-    # _composite gathers ids by the order; visit ids are already in it
-    slot_ids = np.zeros_like(visit_ids)
-    np.put_along_axis(slot_ids, orders, visit_ids, 1)
-    segs = _composite(masks, boxes, depths, slot_ids, valid,
-                      np.zeros((s, img_h, img_w), np.int32),
-                      np.full((s, img_h, img_w), 1e9, np.float32), orders, 0.5,
-                      use_depth=False)
     boxes_np = boxes.cpu().numpy()
     inst_scores = batch["inputs"].get("inst_scores")
     scenes: List[List[Dict[str, Any]]] = []
@@ -256,7 +247,7 @@ def predict_instances(model, batch) -> Dict[str, Any]:
             score = 1.0 if inst_scores is None else float(inst_scores[b][k])
             insts.append({
                 "mask": binary,
-                "class_train_id": int(classes[b, k]) + 11,
+                "class_train_id": int(classes[b, k]) + N_STUFF,
                 "bbox_ulbr": boxes_np[b, k],
                 "depth": float(depths_np[b, k]),
                 "score": score,

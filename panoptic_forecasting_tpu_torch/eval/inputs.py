@@ -1,17 +1,12 @@
 """The forecast step's inputs on its device, each host input read once.
 
 On a CUDA device each host input (a numpy array or a CPU tensor) is
-copied once into page-locked memory, ``depth`` cast to f32 in that pass
-as the step always has, and moved to the card by a non-blocking copy on
-the step's copy stream:
-
-* each pc map (``seg``, ``depth``, ``depth_mask``) from its own pinned
-  tensor, in one piece, so that its DMA runs while the host fills the
-  next map;
-* the fg and fusion inputs packed next to each other in one pinned
-  buffer, each at an offset aligned to ``ALIGN`` bytes, in one copy. The
-  step stages them after it has launched bg, so their host pass and DMA
-  overlap bg's kernels.
+copied once into its own page-locked tensor, ``depth`` cast to f32 in
+that pass as the step always has, and moved to the card in one piece by
+a non-blocking copy on the step's copy stream. Each pc map's
+(``seg``, ``depth``, ``depth_mask``) DMA runs while the host fills the
+next map. The step stages the fg and fusion inputs after it has launched
+bg, so their host passes and DMAs overlap bg's kernels.
 
 The host pass is torch's copy, spread over the process's intra-op
 threads: on the 8-core host of an H100 machine it ran at 20-62 GB/s, one
@@ -37,46 +32,16 @@ While a ``torch.profiler`` records, each stage's host pass is the span
 from __future__ import annotations
 
 import contextlib
-import math
-from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
 from ..core.tracing import span
 
-ALIGN = 64  # bytes between packed offsets: a cache line, and every dtype's alignment
 PC_KEYS = ("seg", "depth", "depth_mask")
+CASTS = {"depth": torch.float32}  # the pc maps' casts
 COUNTERS = ("calls", "bytes_staged", "bytes_passed_through", "htod_copies",
-            "reuse_waits", "arena_grows")
-
-
-class Slot(NamedTuple):
-    """An input's place in a byte buffer."""
-
-    offset: int
-    dtype: torch.dtype
-    shape: Tuple[int, ...]
-
-    @property
-    def nbytes(self) -> int:
-        return math.prod(self.shape) * self.dtype.itemsize
-
-
-def layout(specs: Sequence[Tuple[str, torch.dtype, Sequence[int]]]
-           ) -> Tuple[Dict[str, Slot], int]:
-    """Slots for ``specs`` (key, dtype, shape) laid one after another, each
-    offset a multiple of ``ALIGN``; -> (slots, the end of the last)."""
-    slots, end = {}, 0
-    for key, dtype, shape in specs:
-        slot = Slot(-(-end // ALIGN) * ALIGN, dtype, tuple(int(s) for s in shape))
-        slots[key] = slot
-        end = slot.offset + slot.nbytes
-    return slots, end
-
-
-def view(buf: torch.Tensor, slot: Slot) -> torch.Tensor:
-    """``slot`` of the byte tensor ``buf`` as a typed tensor of its shape."""
-    return buf[slot.offset:slot.offset + slot.nbytes].view(slot.dtype).view(slot.shape)
+            "reuse_waits")
 
 
 class Inputs:
@@ -87,8 +52,7 @@ class Inputs:
     from pinned memory; ``bytes_passed_through``, inputs read where they lay;
     ``htod_copies``; ``reuse_waits``, calls begun while the copy stream
     still ran (the allocator keeps the pinned memory those copies read
-    from the new call, so nothing waits on the host); ``arena_grows``,
-    calls that staged more bytes than any call before them.
+    from the new call, so nothing waits on the host).
     """
 
     def __init__(self, dev: torch.device):
@@ -97,52 +61,34 @@ class Inputs:
         self.dev = dev
         self.counters = dict.fromkeys(COUNTERS, 0)
         self.stream = None if dev.type == "cpu" else torch.cuda.Stream(dev)
-        self._call_bytes = self._most_bytes = 0
 
     def pc(self, pc_in: Mapping[str, Any]):
         """Starts a call: -> (seg, depth as f32, depth_mask) on the device."""
         self.counters["calls"] += 1
-        self._call_bytes = 0
         if self.dev.type == "cpu":
             with span("forecast.stage"):
-                return tuple(self._resident(pc_in[k], _cast(k)) for k in PC_KEYS)
+                return tuple(self._resident(pc_in[k], CASTS.get(k)) for k in PC_KEYS)
         if not self.stream.query():
             self.counters["reuse_waits"] += 1
-        out = [self._resident(pc_in[k], _cast(k)) for k in PC_KEYS]
-        if any(t is None for t in out):
-            with self._staging() as compute:
-                for i, k in enumerate(PC_KEYS):
-                    if out[i] is None:
-                        host = torch.as_tensor(pc_in[k])
-                        pinned = torch.empty(host.shape, dtype=_cast(k) or host.dtype,
-                                             pin_memory=True)
-                        out[i] = self._copy(pinned.copy_(host), compute)
-        return tuple(out)
+        return tuple(self._on_device({k: pc_in[k] for k in PC_KEYS}, CASTS).values())
 
     def fg(self, fg_in: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """Ends a call: its fg and fusion inputs on the device, in ``fg_in``'s order."""
         if self.dev.type == "cpu":
             with span("forecast.stage"):
                 return {k: self._resident(v) for k, v in fg_in.items()}
-        out, host = {}, {}
-        for k, v in fg_in.items():
-            t = self._resident(v)
-            if t is None:
-                host[k] = torch.as_tensor(v)
-            else:
-                out[k] = t
+        return self._on_device(fg_in, {})
+
+    def _on_device(self, src: Mapping[str, Any], casts) -> Dict[str, torch.Tensor]:
+        """``src`` on the device, in its order: each input where it lies,
+        or staged (cast by ``casts``) in one ``_staging`` block."""
+        out = {k: self._resident(v, casts.get(k)) for k, v in src.items()}
+        host = [k for k, t in out.items() if t is None]
         if host:
-            slots, end = layout([(k, a.dtype, a.shape) for k, a in host.items()])
             with self._staging() as compute:
-                pinned = torch.empty(end, dtype=torch.uint8, pin_memory=True)
-                for k, slot in slots.items():
-                    view(pinned, slot).copy_(host[k])
-                buf = self._copy(pinned, compute)
-            out.update({k: view(buf, slot) for k, slot in slots.items()})
-        if self._call_bytes > self._most_bytes:
-            self._most_bytes = self._call_bytes
-            self.counters["arena_grows"] += 1
-        return {k: out[k] for k in fg_in}
+                for k in host:
+                    out[k] = self._stage(src[k], casts.get(k), compute)
+        return out
 
     def _resident(self, x, dtype=None) -> Optional[torch.Tensor]:
         """``x`` where it lies, cast to ``dtype``, when the step's device
@@ -163,18 +109,16 @@ class Inputs:
             yield compute
         compute.wait_stream(self.stream)
 
-    def _copy(self, pinned: torch.Tensor, compute) -> torch.Tensor:
-        """``pinned`` in a fresh device tensor, by a non-blocking copy on
-        the current (copy) stream."""
+    def _stage(self, x, dtype: Optional[torch.dtype], compute) -> torch.Tensor:
+        """The host input ``x`` (cast to ``dtype``) through a fresh pinned
+        tensor into a fresh device tensor, by a non-blocking copy on the
+        current (copy) stream."""
+        host = torch.as_tensor(x)
+        pinned = torch.empty(host.shape, dtype=dtype or host.dtype, pin_memory=True)
+        pinned.copy_(host)
         dev = torch.empty(pinned.shape, dtype=pinned.dtype, device=self.dev)
         dev.copy_(pinned, non_blocking=True)
         dev.record_stream(compute)
-        nbytes = pinned.numel() * pinned.element_size()
         self.counters["htod_copies"] += 1
-        self.counters["bytes_staged"] += nbytes
-        self._call_bytes += nbytes
+        self.counters["bytes_staged"] += pinned.numel() * pinned.element_size()
         return dev
-
-
-def _cast(key: str) -> Optional[torch.dtype]:
-    return torch.float32 if key == "depth" else None

@@ -42,34 +42,21 @@ def paste_masks_bilinear(masks: torch.Tensor, bboxes_ulbr: torch.Tensor, *,
     return torch.where((deg_w | deg_h)[:, None, None], 0.0, out)
 
 
-def paste_and_composite(masks, bboxes_ulbr, depths, ids, valid, bg_labels,
-                        bg_depth, *, img_h: int, img_w: int,
-                        threshold: float = 0.5, use_depth: bool = True):
-    """Composite N instances, already in paint order, over a background.
+def paste_and_composite_scenes(masks, bboxes_ulbr, depths, ids, valid,
+                               bg_labels, bg_depth, *, img_h: int, img_w: int,
+                               threshold: float = 0.5, use_depth: bool = True):
+    """Composite S scenes of N instances, already in paint order, over
+    their backgrounds (the JAX package vmaps its one-scene
+    ``paste_and_composite`` over scenes, ``eval/fusion.py``).
 
     A pixel takes an instance's id when its pasted probability is
     ``>= threshold`` and, with ``use_depth``, the instance is strictly
     nearer than the current z-buffer (``depth < current``); later
     instances otherwise overwrite (fg_model.py:557-588).
 
-    masks (N, Hm, Wm) probabilities; bboxes_ulbr (N, 4); depths (N,);
-    ids (N,) int32; valid (N,) bool; bg_labels (H, W) int32; bg_depth
-    (H, W) f32. Returns (label_canvas (H, W) int32, depth_canvas (H, W)).
-    """
-    label_c, depth_c = paste_and_composite_scenes(
-        masks[None], bboxes_ulbr[None], depths[None], ids[None], valid[None],
-        bg_labels[None], bg_depth[None], img_h=img_h, img_w=img_w,
-        threshold=threshold, use_depth=use_depth)
-    return label_c[0], depth_c[0]
-
-
-def paste_and_composite_scenes(masks, bboxes_ulbr, depths, ids, valid,
-                               bg_labels, bg_depth, *, img_h: int, img_w: int,
-                               threshold: float = 0.5, use_depth: bool = True):
-    """``paste_and_composite`` of S scenes at once (the JAX package vmaps
-    it over scenes, ``eval/fusion.py``): masks (S, N, Hm, Wm), boxes
-    (S, N, 4), depths/ids/valid (S, N), bg_labels/bg_depth (S, H, W).
-    Returns (S, H, W) label and depth canvases."""
+    masks (S, N, Hm, Wm) probabilities; bboxes_ulbr (S, N, 4);
+    depths/valid (S, N); ids (S, N) int32; bg_labels (S, H, W) int32;
+    bg_depth (S, H, W) f32. Returns (S, H, W) label and depth canvases."""
     s, n, mh, mw = masks.shape
     pasted = paste_masks_bilinear(
         masks.reshape(s * n, mh, mw), bboxes_ulbr.reshape(s * n, 4),

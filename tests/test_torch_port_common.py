@@ -32,6 +32,13 @@ FG_MODEL = {
 }
 
 
+CANVAS_STATS = {  # (mean, std) of boxes/velocities in a 128-wide frame
+    "traj": ([64, 32, 16, 16, 0, 0, 0, 0], [30, 12, 6, 6, 2, 1, 1, 1]),
+    "depth": ([20.0, 0.0], [10.0, 1.0]),
+    "odom": ([8.2, 0.0, 0.5, 0.0, 0.0], [0.3, 0.01, 0.02, 1.0, 1.0]),
+}
+
+
 def fg_fixture(root, model_overrides=None, cfg_overrides=None):
     """-> (cfg, jax FGModel, its variables, one scene batch (S, N, ...));
     ``cfg_overrides`` sets top-level keys (``use_bbox_ulbr``)."""

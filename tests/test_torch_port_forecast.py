@@ -19,7 +19,7 @@ from panoptic_forecasting_tpu_torch.eval.forecast import build_forecast_step
 from panoptic_forecasting_tpu_torch.geometry import rdf_T_flu, unicycle_now_T_prev
 from panoptic_forecasting_tpu_torch.models.bg import BGModel
 from panoptic_forecasting_tpu_torch.models.convert import bg_state_dict_from_jax
-from test_torch_port_common import fg_fixture, port_fg
+from test_torch_port_common import CANVAS_STATS, fg_fixture, port_fg
 
 torch.set_num_threads(2)
 
@@ -87,10 +87,40 @@ def test_forecast_step_matches_jax(slice_case, folded):
     assert port_bg.folded == folded
     step = build_forecast_step(port_bg, port_fg(cfg, fg_model, fg_vars),
                                height=H, width=W, out_t=out_t, device="cpu")
-    out = step(pc_in, fg_in)
+    assert_step_matches(step(pc_in, fg_in), ref, pc_in["seg"].shape[0])
 
+
+@pytest.mark.parametrize("option", ["use_bg_depth", "no_depth_sorting"])
+def test_forecast_step_fusion_options_match_jax(slice_case, option, monkeypatch):
+    """The folded step with the fusion's options: instances z-buffered
+    against the reprojected depth, or painted in slot order. Box
+    statistics of a 128-wide frame land the instances on the canvas, and
+    each option changes the map."""
+    cfg, fg_model, fg_vars, bg_model, bg_vars, pc_in, fg_in, out_t = slice_case
+    for name, (mean, std) in CANVAS_STATS.items():
+        monkeypatch.setattr(fg_model, f"{name}_mean", np.asarray(mean, np.float32))
+        monkeypatch.setattr(fg_model, f"{name}_std", np.asarray(std, np.float32))
+    bg_vars = jax.tree_util.tree_map(np.asarray, jax.jit(bg_model.maybe_fold)(bg_vars))
+    port_bg = BGModel(BG_CFG, device="cpu").maybe_fold()
+    port_bg.load_state_dict(bg_state_dict_from_jax(bg_vars))
+    port = port_fg(cfg, fg_model, fg_vars)
+    kw = {"height": H, "width": W, "out_t": out_t, "device": "cpu"}
+    plain = build_forecast_step(port_bg, port_fg(cfg, fg_model, fg_vars), **kw)(pc_in, fg_in)
+    if option == "no_depth_sorting":
+        monkeypatch.setattr(fg_model, "use_depth_sorting", False)
+        port.use_depth_sorting = False
+    kw["use_bg_depth"] = option == "use_bg_depth"
+    out = build_forecast_step(port_bg, port, **kw)(pc_in, fg_in)
+    del kw["device"]
+    ref = jax_step(bg_model, fg_model, **kw)(bg_vars, fg_vars, pc_in, fg_in)
+    assert_step_matches(out, ref, pc_in["seg"].shape[0])
+    assert (out["panoptic"] >= 11000).any()
+    assert not torch.equal(out["panoptic"], plain["panoptic"])
+
+
+def assert_step_matches(out, ref, n_scenes):
     pan, pan_ref = out["panoptic"].numpy(), np.asarray(ref["panoptic"])
-    assert pan.shape == pan_ref.shape == (pc_in["seg"].shape[0], H, W)
+    assert pan.shape == pan_ref.shape == (n_scenes, H, W)
     assert pan.dtype == np.int32
     mismatch = float((pan != pan_ref).mean())
     assert mismatch < 1e-3, f"{mismatch:.2%} pixels differ"

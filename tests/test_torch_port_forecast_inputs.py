@@ -1,5 +1,5 @@
-"""The forecast step's inputs (``eval/inputs.py``): the fg inputs'
-packed layout, the CUDA branch's staging driven on the CPU with
+"""The forecast step's inputs (``eval/inputs.py``): the CUDA branch's
+staging, a pinned tensor and a copy an input, driven on the CPU with
 stand-ins for streams and pinned memory, and the step's own
 reads of its inputs: each converted once a call, device-resident ones
 passed through, each host pass a ``pf.forecast.stage`` span.
@@ -26,7 +26,7 @@ torch.set_num_threads(2)
 
 H, W, T, OUT_T, N = 64, 128, 3, 3, 4
 
-# (source dtype, the slot's dtype): the map dtypes, the fg dtypes and
+# (source dtype, the staged dtype): the map dtypes, the fg dtypes and
 # depth's cast from float64
 CASTS = [(np.int32, torch.int32), (np.float32, torch.float32), (np.bool_, torch.bool),
          (np.int64, torch.int64), (np.float64, torch.float32)]
@@ -38,54 +38,6 @@ def source(rng, dtype, shape):
     if np.issubdtype(dtype, np.integer):
         return rng.randint(-(2**31), 2**31 - 1, shape).astype(dtype)
     return (rng.randn(*shape) * 1e3).astype(dtype)
-
-
-# ---- layout and packing -----------------------------------------------------
-
-SPECS = [("a", torch.bool, (1, 3, 7)), ("b", torch.float32, (5,)), ("c", torch.int64, (1, 3)),
-         ("d", torch.bool, (0, 4)), ("e", torch.int32, (2, 2, 3))]
-
-
-@pytest.mark.parametrize("order", ["given", "reversed", "by_size"])
-def test_layout_aligns_every_offset_and_overlaps_nothing(order):
-    specs = {"given": SPECS, "reversed": SPECS[::-1],
-             "by_size": sorted(SPECS, key=lambda s: s[1].itemsize)}[order]
-    slots, end = staging.layout(specs)
-    assert list(slots) == [k for k, *_ in specs]
-    prev = 0
-    for (key, dtype, shape), s in zip(specs, slots.values()):
-        assert s.offset % staging.ALIGN == 0 and s.offset >= prev
-        assert s.offset - prev < staging.ALIGN
-        assert s.dtype == dtype and s.shape == shape
-        assert s.nbytes == int(np.prod(shape)) * dtype.itemsize
-        prev = s.offset + s.nbytes
-    assert end == prev
-
-
-@pytest.mark.parametrize("src_dtype,dtype", CASTS)
-@pytest.mark.parametrize("shape", [(1, 3, 9, 11), (2, 0, 5)])
-def test_packed_views_equal_their_sources(src_dtype, dtype, shape):
-    """Every typed view of a packed buffer holds its source's bits (after
-    the same cast torch makes), an empty input included, its neighbours
-    untouched."""
-    rng = np.random.RandomState(0)
-    srcs = {"before": source(rng, np.int32, (3, 5)), "x": source(rng, src_dtype, shape),
-            "after": source(rng, np.bool_, (7,))}
-    srcs = {k: torch.from_numpy(a) for k, a in srcs.items()}
-    slots, end = staging.layout([(k, dtype if k == "x" else a.dtype, a.shape)
-                                 for k, a in srcs.items()])
-    buf = torch.zeros(end + 5, dtype=torch.uint8)
-    for k, a in srcs.items():
-        staging.view(buf, slots[k]).copy_(a)
-    for k, a in srcs.items():
-        got = staging.view(buf, slots[k])
-        want = a.to(slots[k].dtype)
-        assert got.shape == want.shape and got.dtype == want.dtype
-        assert torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)), k
-    used = torch.zeros(end + 5, dtype=torch.bool)
-    for s in slots.values():
-        used[s.offset:s.offset + s.nbytes] = True
-    assert not buf[~used].any()
 
 
 # ---- the CUDA branch on the CPU ------------------------------------------------
@@ -132,6 +84,37 @@ def stand_ins(monkeypatch):
     return log
 
 
+@pytest.mark.parametrize("src_dtype,dtype", CASTS)
+@pytest.mark.parametrize("shape", [(1, 3, 9, 11), (2, 0, 5)])
+def test_packed_views_equal_their_sources(stand_ins, src_dtype, dtype, shape):
+    """Each staged input reaches the device with its source's bits (after
+    the same cast torch makes), an empty input included, its neighbours
+    too, through a pinned tensor and a device tensor of its own. The step
+    casts only the pc map ``depth``: a cast is staged as that map, any
+    other input as an fg input."""
+    rng = np.random.RandomState(0)
+    x = source(rng, src_dtype, shape)
+    inp = staging.Inputs(torch.device("cuda", 0))
+    if torch.from_numpy(x).dtype == dtype:
+        srcs = {"before": source(rng, np.int32, (3, 5)), "x": x,
+                "after": source(rng, np.bool_, (7,))}
+        got = inp.fg(srcs)
+    else:
+        srcs = {"seg": source(rng, np.int32, (3, 5)), "depth": x,
+                "depth_mask": source(rng, np.bool_, (7,))}
+        got = dict(zip(staging.PC_KEYS, inp.pc(srcs)))
+    assert list(got) == list(srcs)
+    for k, a in srcs.items():
+        want = torch.from_numpy(a).to(dtype if a is x else torch.from_numpy(a).dtype)
+        assert got[k].shape == want.shape and got[k].dtype == want.dtype
+        assert torch.equal(got[k].reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8)), k
+    shapes = [tuple(np.shape(a)) for a in srcs.values()]
+    for kind in ("pinned", "device"):
+        assert [e[1] for e in stand_ins if e != "wait" and e[0] == kind] == shapes
+    assert inp.counters["htod_copies"] == 3 and stand_ins.count("wait") == 1
+
+
 def scene(rng, h, w, n):
     pc = {"seg": rng.randint(0, 19, (1, T, h, w)).astype(np.int32),
           "depth": rng.rand(1, T, h, w) * 40,  # float64: the step casts it
@@ -145,9 +128,12 @@ def scene(rng, h, w, n):
 
 
 def test_staging_copies_each_pc_map_once_and_the_fg_inputs_in_one(stand_ins):
+    """A pinned tensor, a device tensor and one copy an input; the pc maps
+    in one staging pass and the fg inputs in another, the compute stream
+    waiting once after each."""
     rng = np.random.RandomState(1)
     inp = staging.Inputs(torch.device("cuda", 0))
-    grows, waits = [], []
+    waits = []
     for i, (h, w, n) in enumerate([(16, 40, 4), (16, 40, 4), (12, 40, 3), (20, 48, 6)]):
         pc, fg = scene(rng, h, w, n)
         stand_ins.stream.busy = i % 2 == 1
@@ -161,22 +147,18 @@ def test_staging_copies_each_pc_map_once_and_the_fg_inputs_in_one(stand_ins):
         for k, v in fg.items():
             assert torch.equal(out[k], torch.as_tensor(v)), k
         got = {k: inp.counters[k] - before[k] for k in inp.counters}
-        _, fg_end = staging.layout([(k, torch.as_tensor(v).dtype, np.shape(v))
-                                    for k, v in fg.items()])
+        fg_bytes = sum(torch.as_tensor(v).numel() * torch.as_tensor(v).element_size()
+                       for v in fg.values())
         assert got["calls"] == 1 and got["bytes_passed_through"] == 0
-        assert got["bytes_staged"] == T * h * w * (4 + 4 + 1) + fg_end
-        assert got["htod_copies"] == 3 + 1  # one a pc map, one for fg and fusion
-        # a pinned tensor and a device tensor a map, a pinned buffer and a
-        # device buffer for the fg region; the compute stream waits twice
+        assert got["bytes_staged"] == T * h * w * (4 + 4 + 1) + fg_bytes
+        assert got["htod_copies"] == 3 + len(fg)  # one an input
         calls = stand_ins[logged:]
-        maps = [(1, T, h, w)] * 3
-        assert [e[1] for e in calls if e != "wait" and e[0] == "pinned"] == maps + [(fg_end,)]
-        assert [e[1] for e in calls if e != "wait" and e[0] == "device"] == maps + [(fg_end,)]
+        shapes = [(1, T, h, w)] * 3 + [tuple(np.shape(v)) for v in fg.values()]
+        assert [e[1] for e in calls if e != "wait" and e[0] == "pinned"] == shapes
+        assert [e[1] for e in calls if e != "wait" and e[0] == "device"] == shapes
         assert calls.count("wait") == 2
         waits.append(got["reuse_waits"])
-        grows.append(got["arena_grows"])
     assert waits == [0, 1, 0, 1]  # a call begun while the copy stream ran
-    assert grows == [1, 0, 0, 1]  # only a call larger than all before it
 
 
 @pytest.mark.parametrize("pc_on_device", [False, True])
@@ -204,7 +186,6 @@ def test_staging_passes_device_tensors_through(stand_ins, pc_on_device):
     staged = 0 if pc_on_device else T * 8 * 16 * 9  # the pc maps alone
     assert inp.counters["bytes_staged"] == staged
     assert inp.counters["htod_copies"] == (0 if pc_on_device else 3)  # one a pc map, no fg
-    assert inp.counters["arena_grows"] == (0 if pc_on_device else 1)
 
 
 # ---- the step ------------------------------------------------------------------
@@ -284,7 +265,7 @@ def test_resident_inputs_pass_through(case, kind):
     nbytes = sum(np.asarray(pc_in[k]).nbytes for k in staging.PC_KEYS)
     nbytes += sum(np.asarray(v).nbytes for v in fg_in.values())
     assert counts == {"calls": 1, "bytes_staged": 0, "bytes_passed_through": nbytes,
-                      "htod_copies": 0, "reuse_waits": 0, "arena_grows": 0}
+                      "htod_copies": 0, "reuse_waits": 0}
     for k in want:
         assert torch.equal(got[k], want[k]), k
 

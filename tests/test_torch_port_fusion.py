@@ -14,22 +14,21 @@ on < 1e-3 of pixels (threshold-boundary flips: the sigmoid and the paste
 in another order), each instance mask too.
 """
 
+import types
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from panoptic_forecasting_tpu.eval import fusion as jax_fusion
+from panoptic_forecasting_tpu.eval.forecast import _instance_ids as jax_instance_ids
 from panoptic_forecasting_tpu_torch.eval import fusion
-from test_torch_port_common import fg_fixture, jit_jax_models, port_fg
+from test_torch_port_common import CANVAS_STATS, fg_fixture, jit_jax_models, port_fg
 
 torch.set_num_threads(2)
 
 H, W = 64, 128
-STATS = {  # (mean, std) of boxes/velocities in a 128-wide frame
-    "traj": ([64, 32, 16, 16, 0, 0, 0, 0], [30, 12, 6, 6, 2, 1, 1, 1]),
-    "depth": ([20.0, 0.0], [10.0, 1.0]),
-    "odom": ([8.2, 0.0, 0.5, 0.0, 0.0], [0.3, 0.01, 0.02, 1.0, 1.0]),
-}
 VARIANTS = ("canvas", "bg_depth", "bg_depth_mask", "no_depth_sorting")
 FUNCS = ("predict_panoptic", "predict_semantics", "predict_instances")
 
@@ -37,7 +36,7 @@ FUNCS = ("predict_panoptic", "predict_semantics", "predict_instances")
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     cfg, jax_model, variables, batch = fg_fixture(str(tmp_path_factory.mktemp("fusion")))
-    for name, (mean, std) in STATS.items():
+    for name, (mean, std) in CANVAS_STATS.items():
         setattr(jax_model, f"{name}_mean", np.asarray(mean, np.float32))
         setattr(jax_model, f"{name}_std", np.asarray(std, np.float32))
     model = port_fg(cfg, jax_model, variables)
@@ -108,3 +107,45 @@ def test_predict_instances_matches_jax(results, variant):
             assert g["depth"] == pytest.approx(w["depth"], rel=1e-5, abs=1e-5)
             n += 1
     assert n > 0
+
+
+def order_scenes():
+    """(depths, classes, valid) of 4 scenes of 8 slots: depth ties and
+    repeated classes, an all-invalid scene, a NaN depth (valid and
+    padded)."""
+    rng = np.random.RandomState(3)
+    depths = rng.choice([4.0, 9.5, 9.5, 30.0], (4, 8)).astype(np.float32)
+    classes = rng.randint(0, 3, (4, 8))
+    valid = rng.rand(4, 8) > 0.3
+    valid[1] = False
+    valid[3] = True
+    depths[2, [2, 5]] = np.nan
+    valid[2, 2], valid[2, 5] = True, False
+    return depths, classes, valid
+
+
+@pytest.mark.parametrize("panoptic", [True, False], ids=["panoptic", "semantic"])
+@pytest.mark.parametrize("sort", [True, False], ids=["depth_sorted", "slot_order"])
+def test_visit_order_matches_jax(sort, panoptic):
+    """The one visit order and id function against JAX's host loop
+    (``eval/fusion.py::_order_and_ids``, ids by slot) and, in panoptic
+    mode, its forecast step's (``eval/forecast.py::_instance_ids``, ids in
+    visit order)."""
+    depths, classes, valid = order_scenes()
+    order, ids = fusion.visit_order(torch.from_numpy(depths), torch.from_numpy(classes),
+                                    torch.from_numpy(valid), use_depth_sorting=sort,
+                                    panoptic=panoptic)
+    assert ids.dtype == torch.int32
+    slot_ids = torch.zeros_like(ids).scatter_(1, order, ids).numpy()
+    model = types.SimpleNamespace(use_depth_sorting=sort)
+    for b in range(len(depths)):
+        want_order, want_ids = jax_fusion._order_and_ids(model, depths[b], classes[b],
+                                                         valid[b], panoptic)
+        np.testing.assert_array_equal(order[b].numpy(), want_order)
+        np.testing.assert_array_equal(slot_ids[b], want_ids)
+        if panoptic:
+            j_order, j_ids = jax_instance_ids(jnp.asarray(classes[b]), jnp.asarray(depths[b]),
+                                              jnp.asarray(valid[b]), sort)
+            np.testing.assert_array_equal(order[b].numpy(), np.asarray(j_order))
+            np.testing.assert_array_equal(ids[b].numpy(), np.asarray(j_ids))
+    assert (slot_ids[1] == 0).all() and (slot_ids[3] > 0).all()
