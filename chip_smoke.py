@@ -297,7 +297,8 @@ Phases (any failure exits non-zero):
      SGD, clip-norm 5, f32) on 12 seeded batches: one ``train()`` run
      graphed against three eager ones from the same weights (the eager
      runs with the graphs' seam set aside), cuDNN's default algorithms:
-     the counters 1 capture, 11 replays, the first step eager; the final
+     the counters 1 capture, 11 replays, the first step eager, every
+     replayed batch staged through the pinned buffers; the final
      state (relative L2) and the step losses (mean relative gap) no
      farther from each eager run than twice the eager runs' own spread
      (cuDNN's weight gradient is not bit-deterministic), the first losses
@@ -305,11 +306,16 @@ Phases (any failure exits non-zero):
      device-only trace equal graphed and eager (memsets, copies and the
      kinds whose counts differ printed), and in a trace with host events
      the kernels and memsets launched in each ``pf.train.*`` span a step,
-     those of ``pf.train.optim`` equal and not 0. Then 2 epochs of 3
+     those of ``pf.train.optim`` equal and not 0; the HtoD copies' device
+     ms a step in each run's host-event trace, and the ms of them that a
+     kernel ran beside. Then 2 epochs of 3
      steps under ``lr_decay_type: step`` (the rate a tenth in epoch 2)
      with cuDNN's deterministic algorithms: graphed bit-equal to eager,
      the update graph captured again once; held at epoch 1's rate, not
-     equal. Then
+     equal. Then 8 steps graphed with a ``torch.cuda._sleep`` on the
+     compute stream before each DtoD into the captured inputs (each next
+     DMA waits for it, and the host for that DMA), bit-equal to eager
+     under deterministic cuDNN, the host's waits counted. Then
      ``portbench/control.py`` on ``bg_train.pool8``: the program's run
      correct and each of the cell's training faults caught by its check
      (``[graph]`` lines; readings under the JSON's ``graph``). Phases
@@ -4124,6 +4130,8 @@ GRAPH_TIMED, GRAPH_LIGHT, GRAPH_FULL = (2, 6), (6, 8), (9, 11)
 GRAPH_LR_STEPS = 3  # steps of each epoch of the learning-rate runs
 GRAPH_EAGER_RUNS = 3  # eager runs whose spread the graphed one is held to
 GRAPH_FAULT_SEED = 2**31 + 24  # seed of the pool8 check's program and fault runs
+GRAPH_SLEEP_STEPS = 8  # steps of the runs with a sleep before each DtoD
+GRAPH_SLEEP_CYCLES = 40_000_000  # ~20 ms of the compute stream at the H100's clocks
 
 
 def graph_cfg(wd, **training):
@@ -4224,6 +4232,41 @@ def trace_counts(events, steps):
         out[name] = n / max(len(spans), 1)
         out[name + ".spans"] = len(spans)
     return out
+
+
+def htod_overlap(events, steps):
+    """The HtoD copies of a trace: a step, their count and device ms, and
+    the ms of them in which some kernel ran; their names."""
+    x = [e for e in events if e.get("ph") == "X"]
+    copies = [e for e in x if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    busy = []  # the kernels' merged intervals
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in x if e.get("cat") == "kernel"):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    beside = sum(max(0.0, min(c["ts"] + c["dur"], b) - max(c["ts"], a))
+                 for c in copies for a, b in busy)
+    return {"copies": len(copies) / steps, "ms": sum(c["dur"] for c in copies) / 1e3 / steps,
+            "beside_kernels_ms": beside / 1e3 / steps,
+            "names": sorted({c["name"] for c in copies})}
+
+
+@contextlib.contextmanager
+def slept_moves(cycles):
+    """Within the block the compute stream sleeps ``cycles`` before each
+    DtoD of a staged batch into the captured inputs."""
+    move = step_graph.StepGraphs._move
+
+    def slept(self):
+        torch.cuda._sleep(cycles)
+        move(self)
+
+    step_graph.StepGraphs._move = slept
+    try:
+        yield
+    finally:
+        step_graph.StepGraphs._move = move
 
 
 @contextlib.contextmanager
@@ -4340,8 +4383,9 @@ def graph_phase(dev, root, card):
           f"runs' spread {spread['state']:.3e} / {spread['loss']:.3e} (limit twice "
           f"it); first losses equal {first_equal}; losses graphed "
           f"{[round(float(x), 6) for x in runs['graphed'][2]]}")
-    if (counters["captures"], counters["replays"], counters["eager"]["first_step"],
-            counters["steps"]) != (1, GRAPH_STEPS - 1, 1, GRAPH_STEPS):
+    if (counters["captures"], counters["replays"], counters["staged"],
+            counters["eager"]["first_step"], counters["steps"]) != (
+            1, GRAPH_STEPS - 1, GRAPH_STEPS - 1, 1, GRAPH_STEPS):
         failures.append(f"graphed counters {counters}")
     if eager_counters["eager"]["cpu"] != GRAPH_STEPS:
         failures.append(f"eager counters {eager_counters}")
@@ -4358,8 +4402,11 @@ def graph_phase(dev, root, card):
                                   if w == "light" else GRAPH_FULL[1] - GRAPH_FULL[0])
                   for w in ("light", "full")} for k in ("eager0", "graphed")}
     peaks = {k: runs[k][4] for k in ("eager0", "graphed")}
-    print(f"[graph] host ms a step (steps {GRAPH_TIMED[0] + 1}-{GRAPH_TIMED[1]}, untraced, "
-          f"the batch's pageable copy synchronising each): eager {ms['eager0']:.2f}, "
+    htod = {k: htod_overlap(runs[k][3].traces["full"], GRAPH_FULL[1] - GRAPH_FULL[0])
+            for k in ("eager0", "graphed")}
+    print(f"[graph] host ms a step (steps {GRAPH_TIMED[0] + 1}-{GRAPH_TIMED[1]}, untraced; "
+          f"eager: the batch's pageable copy; graphed: staged through pinned memory): "
+          f"eager {ms['eager0']:.2f}, "
           f"graphed {ms['graphed']:.2f}; peak GiB above earlier tensors: eager "
           f"{peaks['eager0']:.2f}, graphed {peaks['graphed']:.2f} | {card}")
     names = {k: {w: counts[k][w].pop("names") for w in ("light", "full")} for k in counts}
@@ -4373,6 +4420,10 @@ def graph_phase(dev, root, card):
           f"(eager, graphed): {json.dumps(differ)}; full trace, by launching span: eager "
           f"{json.dumps(counts['eager0']['full'])}, graphed "
           f"{json.dumps(counts['graphed']['full'])}")
+    print(f"[graph] HtoD copies, full trace (steps {GRAPH_FULL[0] + 1}-{GRAPH_FULL[1]}, "
+          f"the device synchronised before the first): eager {json.dumps(htod['eager0'])}; "
+          f"graphed {json.dumps(htod['graphed'])}; staged {counters['staged']}, "
+          f"stage_waits {counters['stage_waits']}")
     if counts["eager0"]["light"]["kernels"] != counts["graphed"]["light"]["kernels"]:
         failures.append("the light trace's kernels a step differ graphed and eager")
     g, e = counts["graphed"]["full"], counts["eager0"]["full"]
@@ -4410,7 +4461,25 @@ def graph_phase(dev, root, card):
         failures.append("the epoch's rate did not reach the replayed step")
     del lr_runs
 
-    # (c) the pool8 check, graphed: the program correct, each fault caught
+    # (c) a sleep of the compute stream before each DtoD into the captured
+    # inputs: each next DMA waits on the device for the DtoD, the host for
+    # that DMA before it fills the pinned buffers again; bit-equal to eager
+    sleep_batches = [graph_batches(GRAPH_SLEEP_STEPS, SEED + 222)]
+    with cudnn_deterministic():
+        _, se, le, _, _ = graph_run(dev, root, "graph_sleep_eager", sleep_batches, False)
+        with slept_moves(GRAPH_SLEEP_CYCLES):
+            gs, sg, lg, _, _ = graph_run(dev, root, "graph_sleep", sleep_batches, True)
+    sleep_equal = all(torch.equal(sg[k], se[k]) for k in se) and torch.equal(lg, le)
+    sleep_counters = gs["graph"]
+    print(f"[graph] {GRAPH_SLEEP_STEPS} steps, the compute stream asleep "
+          f"{GRAPH_SLEEP_CYCLES} cycles before each DtoD (cuDNN deterministic): graphed "
+          f"counters {json.dumps(sleep_counters)}; state and losses bit-equal to eager: "
+          f"{sleep_equal}")
+    if not sleep_equal or sleep_counters["staged"] != GRAPH_SLEEP_STEPS - 1 or not (
+            sleep_counters["stage_waits"] > 0):
+        failures.append("a staged batch behind a sleeping compute stream")
+
+    # (d) the pool8 check, graphed: the program correct, each fault caught
     checks = pool8_check(GRAPH_FAULT_SEED)
     for what, (correct, numbers) in checks.items():
         print(f"[graph] pool8 check, {what}: correct {correct}, "
@@ -4424,7 +4493,8 @@ def graph_phase(dev, root, card):
         raise SystemExit("[graph] " + "; ".join(failures))
     return {"counters": counters, "eager_counters": eager_counters, "apart": apart,
             "spread": spread, "host_ms": ms, "trace_counts": counts,
-            "kinds_differ": differ, "peak_gib": peaks,
+            "kinds_differ": differ, "peak_gib": peaks, "htod": htod,
+            "sleep": {"counters": sleep_counters, "bit_equal": sleep_equal},
             "lr": {"counters": gg["graph"], "bit_equal": lr_equal,
                    "held_apart": held_apart},
             "pool8_check": {w: {"correct": c, "numbers": n} for w, (c, n) in checks.items()},

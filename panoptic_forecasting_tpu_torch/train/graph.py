@@ -10,14 +10,28 @@ batch into the graphs' input tensors and replays them. The device work
 is the eager step's: the same kernels in the same order, on the same
 parameters, BatchNorm statistics and momentum buffers, updated in place.
 
-* ``pf.train.to_device`` holds the batch's pageable HtoD copies (into new
-  tensors at the capture, into those afterwards); ``pf.train.forward``
-  replays the forward graph (``model.loss``), ``pf.train.backward`` the
-  backward graph (``(loss / accumulate_steps).backward()``) and
-  ``pf.train.optim`` the update graph (the clip, the optimizer step, the
-  frozen slices; one process has no gradients to all-reduce). The three
-  graphs share one memory pool and are replayed in the order they were
-  captured.
+* ``pf.train.to_device`` moves the batch into the captured inputs in
+  three copies, all launched in that span. The host pass copies each
+  leaf, with torch's threaded copy, into a pinned host buffer of its own,
+  and ends before ``step`` returns: the caller's arrays are not read
+  after it. A non-blocking DMA on a copy stream then fills a held device
+  staging set from those buffers, and a DtoD on the compute stream
+  copies the staging set into the captured inputs right before the
+  forward replay. Replays are asynchronous, so the host stages batch
+  k + 1 while step k's graphs still run, and its DMA overlaps their
+  kernels. The copy stream waits (on the device) for the last DtoD
+  before it writes the staging set again; the host waits for the last
+  DMA before it writes the pinned buffers again. On a CPU device the same
+  copies run in the same order into plain tensors, with no stream.
+  ``pf.train.forward`` replays the forward graph (``model.loss``),
+  ``pf.train.backward`` the backward graph
+  (``(loss / accumulate_steps).backward()``) and ``pf.train.optim`` the
+  update graph (the clip, the optimizer step, the frozen slices; one
+  process has no gradients to all-reduce). The three graphs share one
+  memory pool and are replayed in the order they were captured; the
+  buffers, the staging set and the captured inputs are allocated once,
+  before the first capture, outside that pool. Eager steps copy their
+  batch with ``pf.train.to_device`` (``train/loop.py``).
 * the gradients are the backward graph's outputs, written afresh at each
   replay (they were None when it was captured): ``zero_grad``'s effect.
   The update graph reads them.
@@ -34,7 +48,9 @@ batch runs the trainer's eager step, counted by its reason.
 
 ``counters``: ``steps`` (batches trained), ``captures`` (the three graphs
 captured), ``optim_captures`` (the update graph captured again for a new
-rate), ``replays`` (batches replayed), ``eager`` ({reason: batches}).
+rate), ``replays`` (batches replayed), ``staged`` (batches moved through
+the pinned buffers), ``stage_waits`` (host passes that first waited for a
+DMA still reading the pinned buffers), ``eager`` ({reason: batches}).
 ``capture`` is the seam between the trainer and CUDA: it captures a
 function's CUDA work, unrun, into a graph; ``DEVICE_TYPE`` is the device
 type it captures on.
@@ -73,6 +89,23 @@ def _leaves(batch: Dict[str, Any], path: Tuple[str, ...] = ()) -> Iterator:
                 yield path + (k,), torch.as_tensor(v)
 
 
+class _Host:
+    """A CPU device's copy stream and events: a copy there has ended when
+    it returns."""
+
+    def query(self) -> bool:
+        return True
+
+    def synchronize(self) -> None:
+        pass
+
+    def record(self, stream=None) -> None:
+        pass
+
+    def wait_event(self, event) -> None:
+        pass
+
+
 def _nest(items) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for path, t in items:
@@ -91,7 +124,7 @@ class StepGraphs:
         self.model, self.opt, self.accum = model, opt, accum
         self.device = next(model.parameters()).device
         self.counters = {"steps": 0, "captures": 0, "optim_captures": 0, "replays": 0,
-                         "eager": dict.fromkeys(REASONS, 0)}
+                         "staged": 0, "stage_waits": 0, "eager": dict.fromkeys(REASONS, 0)}
         self.fixed = ("cpu" if self.device.type != DEVICE_TYPE else
                       "ranks" if dist.is_available() and dist.is_initialized() else
                       "accumulate" if accum != 1 else
@@ -101,6 +134,7 @@ class StepGraphs:
         self._pending = None  # the accepted batch's leaves
         self._pool = self._fwd = self._bwd = self._upd = None
         self._static = self.inputs = self._out = self._grads = self._rates = None
+        self._pinned = self._staging = self._copy = self._dma = self._moved = None
 
     def replays(self, batch: Dict[str, Any]) -> bool:
         """Whether ``batch`` is replayed (``step`` then trains it) or runs
@@ -128,6 +162,7 @@ class StepGraphs:
         first = self._fwd is None
         with span("train.to_device"):
             self._stage()
+            self._move()
         if not first and self._rates != self._lrs():
             for p, g in zip(self.opt.params, self._grads):
                 p.grad = g  # what the update graph is to read
@@ -151,14 +186,48 @@ class StepGraphs:
         return self._out[1]
 
     def _stage(self) -> None:
+        """The accepted batch through the pinned buffers (a host pass)
+        into the staging set (a DMA on the copy stream)."""
         leaves, self._pending = self._pending, None
         if self._static is None:
-            self._static = [torch.empty(t.shape, dtype=t.dtype, device=self.device).copy_(t)
-                            for _, t in leaves]
-            self.inputs = _nest((p, s) for (p, _), s in zip(leaves, self._static))
+            self._allocate(leaves)
+        if not self._dma.query():  # the last DMA still reads the buffers
+            self.counters["stage_waits"] += 1
+            self._dma.synchronize()
+        for pinned, (_, src) in zip(self._pinned, leaves):
+            pinned.copy_(src)
+        cuda = self.device.type == "cuda"
+        with torch.cuda.stream(self._copy if cuda else None):
+            self._copy.wait_event(self._moved)  # the last DtoD has read the staging set
+            for dev, pinned in zip(self._staging, self._pinned):
+                dev.copy_(pinned, non_blocking=True)
+            self._dma.record(self._copy)
+        self.counters["staged"] += 1
+
+    def _move(self) -> None:
+        """The staging set into the captured inputs (a DtoD on the compute
+        stream, once the DMA has filled it)."""
+        compute = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
+                   else self._copy)
+        compute.wait_event(self._dma)
+        for static, dev in zip(self._static, self._staging):
+            static.copy_(dev)
+        self._moved.record(compute)
+
+    def _allocate(self, leaves) -> None:
+        """A pinned buffer, a staging tensor and a captured input a leaf,
+        the copy stream and its two events."""
+        cuda = self.device.type == "cuda"
+        like = [(t.shape, t.dtype) for _, t in leaves]
+        self._pinned = [torch.empty(s, dtype=d, pin_memory=cuda) for s, d in like]
+        self._staging, self._static = ([torch.empty(s, dtype=d, device=self.device)
+                                        for s, d in like] for _ in range(2))
+        self.inputs = _nest((p, s) for (p, _), s in zip(leaves, self._static))
+        if cuda:
+            self._copy = torch.cuda.Stream(self.device)
+            self._dma, self._moved = torch.cuda.Event(), torch.cuda.Event()
         else:
-            for dst, (_, src) in zip(self._static, leaves):
-                dst.copy_(src)
+            self._copy = self._dma = self._moved = _Host()
 
     def _capture(self, fn: Callable[[], None]) -> Callable[[], None]:
         replay, self._pool = capture(fn, self._pool)

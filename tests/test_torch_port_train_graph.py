@@ -6,8 +6,10 @@ the trainer's own seam: ``graph.DEVICE_TYPE`` set to the CPU and
 its function with the learning rates it saw at capture, as a CUDA graph
 keeps the optimizer's scalars. Everything around it runs as on the card:
 which batches replay and which run eager (and why), the batch copied
-into the captured inputs, the three graphs in their spans, the update
-graph captured again for a new rate, the counters.
+through its host buffers and staging set into the captured inputs (on
+the CPU plain tensors, the copy stream and its events stood in for by
+``graph._Host``), the three graphs in their spans, the update graph
+captured again for a new rate, the counters.
 
 A run with the stand-in is held bit-equal to the same run all eager
 (the plain CPU path): the bg model (``BGModel``, HarDNet in train mode)
@@ -15,6 +17,7 @@ at crop 64, batch 2, SGD with momentum, decay and clip-norm 5 as
 ``configs/bg/bg_train.yaml`` sets them.
 """
 
+import copy
 import json
 import os
 import weakref
@@ -76,6 +79,18 @@ class Data:
             yield dict(b)
 
 
+class Overwriting(Data):
+    """As ``Data``, but each batch's arrays are overwritten as soon as the
+    next batch is asked for: a caller reusing its buffers."""
+
+    def __iter__(self):
+        for b in super().__iter__():
+            yield b
+            for part in (b["inputs"], b["labels"]):
+                for a in part.values():
+                    a[...] = 7
+
+
 class Counted(BGModel):
     """The bg model, counting its forward passes in train mode."""
 
@@ -86,10 +101,10 @@ class Counted(BGModel):
         return super().loss(batch)
 
 
-def run(tmp_path, epochs, name="run", **training):
+def run(tmp_path, epochs, name="run", data_cls=None, **training):
     cfg = bg_cfg(tmp_path / name, **training)
     model = Counted(cfg, depth_stats=(20.0, 12.0), device="cpu")
-    data = Data(epochs)
+    data = (data_cls or Data)(epochs)
     out = train(model, data, cfg)
     return out, model, data
 
@@ -170,6 +185,45 @@ def test_replayed_steps_train_each_batch_once_as_the_eager_steps(tmp_path, stand
     assert_equal_states(graphed, state(eager))
 
 
+@pytest.mark.parametrize("busy", [(), (1, 3)], ids=["never_busy", "busy_twice"])
+def test_staged_steps_equal_the_eager_ones_and_count_their_waits(tmp_path, stand_in,
+                                                                  monkeypatch, busy):
+    """Every replayed batch goes through the host buffers and the staging
+    set (``staged == replays``). Where the last DMA still reads the host
+    buffers (the stand-in event reads busy at the host passes ``busy``,
+    counted from 0), the host waits for it before the pass and counts the
+    wait. Parameters, BN statistics and momentum equal the eager run's."""
+    queries, synced = [], []
+    monkeypatch.setattr(graph._Host, "query",
+                        lambda self: (queries.append(1), len(queries) - 1 not in busy)[1])
+    monkeypatch.setattr(graph._Host, "synchronize", lambda self: synced.append(len(queries)))
+    epochs = [[make_batch(i) for i in range(5)]]
+    got, model, _ = run(tmp_path, epochs)
+    c = got["graph"]
+    assert_adds_up(c, 5)
+    assert c["replays"] == 4 and c["staged"] == c["replays"] and len(queries) == 4
+    assert c["stage_waits"] == len(busy) and synced == [i + 1 for i in busy]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graph, "DEVICE_TYPE", "cuda")
+        want, eager, _ = run(tmp_path, epochs, "eager")
+    assert want["graph"]["staged"] == want["graph"]["stage_waits"] == 0
+    assert_equal_states(state(model), state(eager))
+
+
+def test_the_host_pass_ends_inside_the_step(tmp_path, stand_in):
+    """The loader overwrites each batch's arrays once the next is asked
+    for: the run trains as on untouched arrays (the eager run's), so
+    nothing reads the caller's arrays after ``step`` returns."""
+    epochs = [[make_batch(i) for i in range(5)]]
+    got, model, data = run(tmp_path, copy.deepcopy(epochs), data_cls=Overwriting)
+    assert got["graph"]["staged"] == 4 and data.handed == [(1, i) for i in range(5)]
+    assert all((a == 7).all() for b in data.epochs[0] for a in b["inputs"].values())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graph, "DEVICE_TYPE", "cuda")
+        _, eager, _ = run(tmp_path, epochs, "eager")
+    assert_equal_states(state(model), state(eager))
+
+
 def test_the_eager_steps_autograd_graph_is_gone_at_the_capture(tmp_path, stand_in,
                                                                  monkeypatch):
     """A capture reuses a live gradient accumulator, which launches on the
@@ -214,6 +268,34 @@ def test_a_changed_batch_runs_eager_and_the_graphs_resume(tmp_path, stand_in, ch
         mp.setattr(graph, "DEVICE_TYPE", "cuda")
         _, eager, _ = run(tmp_path, epochs, "eager")
     assert_equal_states(state(model), state(eager))
+
+
+@pytest.mark.parametrize("change", ["shape", "dtype", "keys"])
+def test_the_graphs_resume_into_the_same_staging_tensors(tmp_path, stand_in, monkeypatch,
+                                                         change):
+    """After a batch of another signature has run eager, the replayed
+    batches go through the host buffers, staging set and captured inputs
+    allocated at the capture: the same tensors at the same addresses,
+    allocated once."""
+    odd = {"shape": dict(size=2 * CROP), "dtype": dict(label_dtype=np.int64),
+           "keys": dict(extra=True)}[change]
+    seen, allocs = [], []
+    stage, allocate = graph.StepGraphs._stage, graph.StepGraphs._allocate
+
+    def staged(self):
+        stage(self)
+        seen.append([(id(t), t.data_ptr())
+                     for t in self._pinned + self._staging + self._static])
+
+    monkeypatch.setattr(graph.StepGraphs, "_stage", staged)
+    monkeypatch.setattr(graph.StepGraphs, "_allocate",
+                        lambda self, leaves: (allocs.append(1), allocate(self, leaves)))
+    epochs = [[make_batch(i, **(odd if i == 3 else {})) for i in range(6)]]
+    got, _, _ = run(tmp_path, epochs)
+    c = got["graph"]
+    assert c["eager"]["signature"] == 1 and c["staged"] == c["replays"] == 4
+    assert len(seen) == 4 and allocs == [1] and len(seen[0]) == 9
+    assert all(s == seen[0] for s in seen)
 
 
 @pytest.mark.parametrize("reason, training", [
