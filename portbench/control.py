@@ -10,11 +10,12 @@ For each of ``--seeds`` a run of the cell (short window, ``--seconds``)
 prints the program's numbers; for each of ``--control-seeds`` the
 control (the reference computed in TF32, the precision below the
 configuration's float32, in the program's place) prints its numbers
-against the float32 reference; for each fault of
-``portbench/harness/faults.py`` (with its data faults where the traffic is
-``files``) and each of ``--fault-seeds`` a run with
-the fault planted prints its numbers. One JSON line each. ``--emulate``
-rounds the control's operands to TF32 by hand (the CPU has no TF32).
+against the float32 reference; for each fault of the cell's runner
+(``FAULTS`` of ``portbench/harness/<kind>.py``, with the data faults of
+``portbench/harness/faults.py`` where the traffic is ``files``) and each of
+``--fault-seeds`` a run with the fault planted prints its numbers. One
+JSON line each. ``--emulate`` rounds the control's operands to TF32 by hand
+(the CPU has no TF32).
 The benchmark's runs never run this.
 """
 
@@ -29,53 +30,6 @@ import sys  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-
-
-def control_numbers(spec, seed: int, dev, emulate: bool):
-    """The control's numbers against the float32 reference."""
-    import torch
-
-    from portbench.harness import check, traffic
-    from portbench.reference import precision
-
-    cfg = spec["config"]
-    ops = (dict(conv=precision.conv, linear=precision.linear, deconv=precision.deconv)
-           if emulate else {})
-
-    def tf32(on: bool):
-        torch.backends.cudnn.allow_tf32 = on
-        torch.backends.cuda.matmul.allow_tf32 = on
-
-    if cfg["kind"] == "forecast":
-        from portbench.harness.forecast import build, reference
-
-        step, served, fg, states = build(cfg, seed, dev)
-        del step, served, fg
-        pool = traffic.make(spec["traffic"], cfg, seed, dev)
-        want = reference(states, cfg, pool, dev)
-        tf32(not emulate)
-        try:
-            got = reference(states, cfg, pool, dev, **ops)
-        finally:
-            tf32(False)
-        return check.forecast_numbers(got, want)
-
-    from portbench.harness.bg_train import CHECK_STEPS, build, reference, sample_batches
-
-    model, state = build(cfg, seed, dev)
-    del model
-    if spec["traffic"]["kind"] == "files":
-        pool, stats = sample_batches(spec["traffic"], cfg, seed, dev)
-        cfg = dict(cfg, depth_stats=stats)
-    else:
-        pool = traffic.make(spec["traffic"], cfg, seed, dev)[:CHECK_STEPS]
-    want = reference(state, pool, cfg, dev)
-    tf32(not emulate)
-    try:
-        got = reference(state, pool, cfg, dev, conv=ops.get("conv"))
-    finally:
-        tf32(False)
-    return check.train_numbers(got, want)
 
 
 def main(argv=None) -> int:
@@ -93,7 +47,7 @@ def main(argv=None) -> int:
     import torch
 
     from portbench.harness import cell
-    from portbench.harness.faults import DATA_FAULTS, FAULTS
+    from portbench.harness.faults import DATA_FAULTS
 
     ints = lambda s: [int(x) for x in s.split(",") if x]  # noqa: E731
     if torch.cuda.is_available():
@@ -102,8 +56,8 @@ def main(argv=None) -> int:
     else:
         dev = torch.device("cpu")
     spec = cell.resolve(args.workload)
-    kind = spec["config"]["kind"]
-    faults = dict(FAULTS[kind], **(DATA_FAULTS if spec["traffic"]["kind"] == "files" else {}))
+    runner = cell.runner(spec["config"]["kind"])
+    faults = dict(runner.FAULTS, **(DATA_FAULTS if spec["traffic"]["kind"] == "files" else {}))
 
     def numbers(line):
         return {r["name"]: r["value"] for r in line["checks"]}
@@ -114,7 +68,7 @@ def main(argv=None) -> int:
                           "numbers": numbers(line), "metrics": line["metrics"]}), flush=True)
     for seed in ints(args.control_seeds):
         print(json.dumps({"what": "control", "seed": seed,
-                          "numbers": control_numbers(spec, seed, dev, args.emulate)}),
+                          "numbers": runner.control(spec, seed, dev, args.emulate)}),
               flush=True)
     for name in [f for f in args.faults.split(",") if f]:
         for seed in ints(args.fault_seeds):

@@ -21,6 +21,10 @@ optimizer step hook) and the parameters before step one and after step
 three; the reference follows the same three steps. Over files it also
 reads the first three batches that the loader handed ``train()``: the
 reference decodes, crops and flips the same samples again.
+
+The kind's faults (``FAULTS``; the data layer's ``faults.DATA_FAULTS``
+join them where the traffic is ``files``), its control (``control``) and
+its cut to the CPU's size (``tiny``) are here too.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 from torch.optim.optimizer import register_optimizer_step_post_hook
 
-from portbench.harness import check, fixture, flops, traffic, weights
+from portbench.harness import check, faults, fixture, flops, traffic, weights
 from portbench.harness.trace import LIGHT_TRIES, Profiler, Traced, mark
 
 CHECK_STEPS = 3
@@ -136,6 +140,7 @@ class WindowLoader:
             elif not ctx.trace and i > CHECK_STEPS and time.perf_counter() - t0 >= ctx.seconds:
                 self._sync()
                 r["span"], r["steps"] = time.perf_counter() - t0, i - CHECK_STEPS
+                ctx.window_done()
                 return
             batch = next(it)
             if i < CHECK_STEPS:
@@ -186,6 +191,41 @@ def reference(state, batches, cfg: Dict, dev, conv=None) -> Dict:
             "raw_grad": dict(zip(g1, _norms(g1.values()))),
             "change": {k: float((p3[k].double() - state[k].to(dev).double()).norm())
                        for k in p3}}
+
+
+FAULTS = {"half_batch": faults.train_half_batch, "unchanged": faults.train_unchanged,
+          "altered": faults.train_altered}
+
+
+def control(spec: Dict, seed: int, dev, emulate: bool) -> Dict[str, float]:
+    """The control's numbers: the reference in TF32 (``emulate``: the
+    convolutions' operands rounded by hand, for the CPU) against the
+    float32 reference, over the first ``CHECK_STEPS`` batches."""
+    from portbench.reference import precision
+
+    cfg = spec["config"]
+    state = build(cfg, seed, dev)[1]
+    if spec["traffic"]["kind"] == "files":
+        pool, stats = sample_batches(spec["traffic"], cfg, seed, dev)
+        cfg = dict(cfg, depth_stats=stats)
+    else:
+        pool = traffic.make(spec["traffic"], cfg, seed, dev)[:CHECK_STEPS]
+    want = reference(state, pool, cfg, dev)
+    with precision.card_tf32(not emulate):
+        got = reference(state, pool, cfg, dev, conv=precision.conv if emulate else None)
+    return check.train_numbers(got, want)
+
+
+def tiny(spec: Dict) -> None:
+    """``spec`` cut to the CPU's size: crops 128 at batch 2; a pool of 4
+    batches, or a file tree of 12 frames of 64x128."""
+    spec["config"]["data"]["crop_size"] = 128
+    spec["config"]["training"]["batch_size"] = 2
+    t = spec["traffic"]
+    if t["kind"] == "files":
+        t.update(samples=12, size=[64, 128])
+    else:
+        t.update(pool=4, batch=2)
 
 
 def sample_batches(params: Dict, cfg: Dict, seed: int, dev):

@@ -4,11 +4,14 @@ the card, hand set-up, window and check to the configuration's runner
 trace, and print the result line.
 
 Everything a cell is made of is found by its names: the configuration's
-file (``BENCHMARK.json``'s ``configs[].file``), the traffic file
-``portbench/traffic/<traffic>.json``, the limits of its check
-``portbench/limits/<cell>.json`` and each per-layer metric's reader
-``portbench/metrics/<metric>.py``. A new cell, traffic mix or metric is
-new files and new entries; no file here changes.
+file (``BENCHMARK.json``'s ``configs[].file``), whose ``kind`` names its
+runner, the traffic file ``portbench/traffic/<traffic>.json``, the limits
+of its check ``portbench/limits/<cell>.json`` and each per-layer metric's
+reader ``portbench/metrics/<metric>.py``. A runner is the one module that
+knows its kind: ``run(ctx)``, its ``FAULTS`` (name -> fault),
+``control(spec, seed, dev, emulate)`` and ``tiny(spec)``. A new cell,
+traffic mix, metric or configuration kind is new files and new entries;
+no file here changes.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import importlib
 import importlib.util
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -55,6 +59,11 @@ def resolve(name: str, man: Optional[Dict] = None) -> Dict:
             "per_layer": layer, "limits": check.limits(name)}
 
 
+def runner(kind: str):
+    """The runner module of a configuration kind, ``portbench/harness/<kind>.py``."""
+    return importlib.import_module(f"portbench.harness.{kind}")
+
+
 def reader(metric: str) -> Callable:
     """The ``read`` function of ``portbench/metrics/<metric>.py``."""
     path = os.path.join(BENCH, "metrics", f"{metric}.py")
@@ -81,6 +90,8 @@ class Ctx:
         self.device, self.t_start, self.fault = device, t_start, fault
         self.setup_s: Optional[float] = None
         self.marks: Dict[str, float] = {}
+        self.card: Dict[str, Dict] = {}
+        self.cpu_s: Optional[float] = None  # the process's CPU seconds in the window
         self.mark("imports")
 
     def mark(self, what: str) -> None:
@@ -88,12 +99,22 @@ class Ctx:
         self.marks[what] = time.perf_counter() - self.t_start
 
     def setup_done(self) -> None:
-        """Set-up ends: the next call is timed."""
+        """Set-up ends: the next call is timed. The card's clock and
+        temperature as the window opens go into the result line."""
         if self.device.type == "cuda":
             import torch
             torch.cuda.synchronize(self.device)
+            self.card["window_start"] = card_state()
         self.setup_s = time.perf_counter() - self.t_start
         self.mark("warmup")
+        self._cpu0 = cpu_seconds()
+
+    def window_done(self) -> None:
+        """The window has closed (and the device is synchronised): the
+        card's clock and temperature then."""
+        self.cpu_s = cpu_seconds() - self._cpu0
+        if self.device.type == "cuda":
+            self.card["window_end"] = card_state()
 
     def memory_peak(self) -> int:
         import torch
@@ -111,14 +132,57 @@ class Ctx:
             torch.cuda.empty_cache()
 
 
-def card_line() -> str:
+def _smi(query: str, units: bool = True) -> str:
+    """``nvidia-smi``'s one line for the card, "" where it reads nothing."""
+    fmt = "csv,noheader" + ("" if units else ",nounits")
     try:
-        out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60)
+        out = subprocess.run(["nvidia-smi", "-i", "0", f"--query-gpu={query}",
+                              f"--format={fmt}"], capture_output=True, text=True, timeout=60)
         return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
     except (OSError, subprocess.SubprocessError):
         return ""
+
+
+def cpu_seconds() -> float:
+    """The CPU seconds this process has used, all its threads."""
+    use = resource.getrusage(resource.RUSAGE_SELF)
+    return use.ru_utime + use.ru_stime
+
+
+def card_line() -> str:
+    return _smi("name,power.limit")
+
+
+def card_state() -> Dict[str, str]:
+    """The card's SM clock (MHz), temperature (C) and active clock
+    throttle reasons (NVML's bit mask: 0x20 is the software thermal
+    slowdown)."""
+    keys = ("sm_mhz", "temp_c", "throttle")
+    vals = [v.strip() for v in _smi("clocks.sm,temperature.gpu,clocks_throttle_reasons.active",
+                                    units=False).split(",")]
+    return dict(zip(keys, vals)) if len(vals) == len(keys) else {}
+
+
+def host_line(device) -> Dict:
+    """What the run's process ran on: its CPUs, the card's NUMA node
+    (None where the machine does not expose it) and torch's intra-op
+    threads, which carry the program's host copies."""
+    import torch
+
+    cpus = sorted(os.sched_getaffinity(0))
+    node = None
+    if device.type == "cuda":
+        props = torch.cuda.get_device_properties(device)
+        bdf = "%04x:%02x:%02x.0" % (getattr(props, "pci_domain_id", 0),
+                                    getattr(props, "pci_bus_id", 0),
+                                    getattr(props, "pci_device_id", 0))
+        try:
+            with open(f"/sys/bus/pci/devices/{bdf}/numa_node") as f:
+                node = int(f.read())
+        except (OSError, ValueError):
+            node = None
+    return {"cpus": len(cpus), "cpu_list": ",".join(map(str, cpus)), "numa_node": node,
+            "threads": torch.get_num_threads()}
 
 
 def execute(name: str, seed: int, seconds: float, trace: bool, device,
@@ -130,8 +194,7 @@ def execute(name: str, seed: int, seconds: float, trace: bool, device,
     harness's tests, at a size the CPU holds)."""
     spec = spec or resolve(name)
     ctx = Ctx(spec, seed, seconds, trace, device, t_start, fault)
-    runner = importlib.import_module(f"portbench.harness.{spec['config']['kind']}")
-    res = runner.run(ctx)
+    res = runner(spec["config"]["kind"]).run(ctx)
     ok, rows = check.judge(res["numbers"], spec["limits"])
     metrics: Dict[str, Dict] = {}
     if trace:
@@ -164,6 +227,7 @@ def execute(name: str, seed: int, seconds: float, trace: bool, device,
     line["setup_split_s"] = ctx.marks
     if "quarters_ms" in res:
         line["window_quarters_ms"] = res["quarters_ms"]
+    line["host"] = dict(host_line(device), card=ctx.card, window_cpu_s=ctx.cpu_s)
     line["checks"] = rows
     return line
 

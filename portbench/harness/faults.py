@@ -1,12 +1,14 @@
 """Faults planted under the timed path, for the check's tests and for
 the readings that set its limits (PERF.md §2): each must make ``correct``
-come out false.
+come out false. Each runner names its own in its ``FAULTS``
+(``portbench/harness/<kind>.py``).
 
 A forecast fault wraps the step; a training fault patches the model or
 the optimizer's steps and returns what undoes it."""
 
 from __future__ import annotations
 
+import importlib
 from typing import Callable, Dict
 
 import torch
@@ -90,10 +92,13 @@ def sample_altered(model) -> Callable:
     return lambda: setattr(BGDataset, "__getitem__", get)
 
 
-FAULTS = {
-    "forecast": {"altered": forecast_altered, "half_batch": forecast_half_batch},
-    "bg_train": {"half_batch": train_half_batch, "unchanged": train_unchanged,
-                 "altered": train_altered},
-}
+class _ByKind:
+    """``FAULTS[kind]``: the ``FAULTS`` of the runner ``portbench/harness/<kind>.py``."""
+
+    def __getitem__(self, kind: str) -> Dict[str, Callable]:
+        return importlib.import_module(f"portbench.harness.{kind}").FAULTS
+
+
+FAULTS = _ByKind()
 # faults of the data layer, for the cells whose traffic is ``files``
 DATA_FAULTS = {"sample_altered": sample_altered}

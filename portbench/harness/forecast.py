@@ -5,10 +5,15 @@ Set-up builds the bg and fg models at the configuration's widths, draws
 their weights on the device from the seed, hands the program the bg
 model to fold as it serves it, builds the step of
 ``eval/forecast.py::build_forecast_step`` and the traffic's scene pool
-(host numpy), and runs the step twice. The window hands the step a
-fresh scene from the pool each call, host arrays in, and ends a frame
-when its panoptic map is on the host. Afterwards the last frame of each
-pool scene is compared with the plain reference.
+(host numpy), and runs each pool scene once, which warms every shape
+the window uses. The window hands the step a fresh scene from the pool
+each call, host arrays in, and ends a frame when its panoptic map is on
+the host, read back into a pinned buffer of the harness (one a pool
+scene). After the window the last frame of each pool scene is compared
+with the plain reference.
+
+The kind's faults (``FAULTS``), its control (``control``) and its cut to
+the CPU's size (``tiny``) are here too.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from portbench.harness import check, flops, traffic, weights
+from portbench.harness import check, faults, flops, traffic, weights
 from portbench.harness.trace import LIGHT_TRIES, Profiler, Traced, hook_ranges, mark
 
 WARM_FRAMES = 3  # traced and dropped: the profiler's first records come late
@@ -54,6 +59,36 @@ def reference(states, cfg: Dict, scenes, dev, conv=None, linear=None, deconv=Non
     return out
 
 
+FAULTS = {"altered": faults.forecast_altered, "half_batch": faults.forecast_half_batch}
+
+
+def control(spec: Dict, seed: int, dev, emulate: bool) -> Dict[str, float]:
+    """The control's numbers: the reference in TF32 (``emulate``: operands
+    rounded by hand, for the CPU) against the float32 reference."""
+    from portbench.reference import precision
+
+    cfg = spec["config"]
+    states = build(cfg, seed, dev)[3]
+    pool = traffic.make(spec["traffic"], cfg, seed, dev)
+    want = reference(states, cfg, pool, dev)
+    ops = (dict(conv=precision.conv, linear=precision.linear, deconv=precision.deconv)
+           if emulate else {})
+    with precision.card_tf32(not emulate):
+        got = reference(states, cfg, pool, dev, **ops)
+    return check.forecast_numbers(got, want)
+
+
+def tiny(spec: Dict) -> None:
+    """``spec`` cut to the CPU's size: 64x128, the fg ROI features
+    32x7x7, a pool of 3 scenes."""
+    c = spec["config"]
+    c.update(height=64, width=128)
+    c["bg"]["model"].update(final_h=64, final_w=128)
+    c["fg"]["model"].update(mask_feat_channels=32, mask_feat_hw=7, mask_head={"conv_dim": 32})
+    c["fg_stats"]["traj"] = [[x / 16 for x in v] for v in c["fg_stats"]["traj"]]
+    spec["traffic"].update(pool=3)
+
+
 def host(out: Dict) -> Dict:
     return {k: (v if isinstance(v, np.ndarray) else v[0].cpu().numpy())
             for k, v in out.items()}
@@ -68,15 +103,21 @@ def run(ctx) -> Dict:
     pool = traffic.make(ctx.traffic, cfg, ctx.seed, dev)
     ctx.mark("traffic")
     kept: Dict[int, Dict] = {}
+    maps: Dict[int, torch.Tensor] = {}  # the host maps, pinned on a card
 
     def frame(i: int) -> None:
-        pc_in, fg_in = pool[i % len(pool)]
-        out = step(pc_in, fg_in)
-        pan = out["panoptic"].cpu().numpy()[0]
-        kept[i % len(pool)] = {"panoptic": pan, "ids": out["ids"], "bg_seg": out["bg_seg"],
-                               "bbox": out["bbox"], "depths": out["depths"]}
+        k = i % len(pool)
+        out = step(*pool[k])
+        pan = out["panoptic"]
+        if k not in maps:
+            maps[k] = torch.empty(pan.shape, dtype=pan.dtype, pin_memory=dev.type == "cuda")
+        maps[k].copy_(pan, non_blocking=True)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        kept[k] = {"panoptic": maps[k].numpy()[0], "ids": out["ids"], "bg_seg": out["bg_seg"],
+                   "bbox": out["bbox"], "depths": out["depths"]}
 
-    for i in range(2):
+    for i in range(len(pool)):
         frame(i)
     ctx.setup_done()
 
@@ -129,6 +170,7 @@ def run(ctx) -> Dict:
             if time.perf_counter() - t0 >= ctx.seconds:
                 break
         span = time.perf_counter() - t0
+        ctx.window_done()
         result["quarters_ms"] = [float(np.mean(q)) * 1e3 for q in np.array_split(lat, 4) if len(q)]
         result["metrics"] = {
             "forecast_ms": span * 1e3 / n,

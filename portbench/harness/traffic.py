@@ -16,6 +16,9 @@ its ``kind`` picks what is made of them:
   the loader's files (``portbench/harness/fixture.py`` writes them): the
   same three segs, raw depth block and GT, before any crop or flip.
 
+A kind not among these is found by name: ``make(params, cfg, seed, dev)``
+of ``portbench/harness/traffic_<kind>.py``.
+
 Everything is drawn on the device from one ``torch.Generator`` and then
 held on the host as numpy, as a loader hands it over. The set of sizes
 (valid slots a scene, crop scales) is fixed by the traffic file and only
@@ -24,6 +27,7 @@ its order depends on the seed, so every seed gives the same work.
 
 from __future__ import annotations
 
+import importlib
 import math
 from typing import Any, Dict, List
 
@@ -315,4 +319,7 @@ KINDS = {"scenes": scenes, "crops": crops, "files": files}
 
 def make(params: Dict[str, Any], cfg: Dict[str, Any], seed: int, dev):
     """The pool a traffic file describes, for a run's seed."""
-    return KINDS[params["kind"]](params, cfg, seed, dev)
+    kind = params["kind"]
+    make_kind = KINDS.get(kind) or importlib.import_module(
+        f"portbench.harness.traffic_{kind}").make
+    return make_kind(params, cfg, seed, dev)

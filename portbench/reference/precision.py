@@ -6,8 +6,23 @@ stand-ins give the CPU the same rounding of the operands."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def card_tf32(on: bool):
+    """cuDNN's and cuBLAS's TF32 switches set to ``on`` inside, off after
+    (the configurations state float32)."""
+    for flags in (torch.backends.cudnn, torch.backends.cuda.matmul):
+        flags.allow_tf32 = on
+    try:
+        yield
+    finally:
+        for flags in (torch.backends.cudnn, torch.backends.cuda.matmul):
+            flags.allow_tf32 = False
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:

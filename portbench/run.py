@@ -17,6 +17,12 @@ own ``_build/`` directory, and the caches of Triton and of torch's
 extension builds (none of which the port uses yet) under
 ``portbench/_cache/``. ``USE_FLAX=0`` keeps a library from loading JAX's
 flax by itself: a run that has loaded JAX fails.
+
+Before torch is imported the run puts its OpenMP threads, which carry
+the program's host copies, to sleep between parallel regions
+(``OMP_WAIT_POLICY=PASSIVE``). Spinning, they took four of an 8-CPU
+machine's cores through the window and the frames slowed in stretches
+(PERF.md §2). The port's own entry points do not set this.
 """
 
 import time
@@ -46,6 +52,7 @@ def main(argv=None) -> int:
     os.environ["TRITON_CACHE_DIR"] = os.path.join(cache, "triton")
     os.environ["TORCH_EXTENSIONS_DIR"] = os.path.join(cache, "torch_extensions")
     os.environ["USE_FLAX"] = "0"
+    os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     from portbench.harness.cell import main as run_cell

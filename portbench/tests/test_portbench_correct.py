@@ -8,9 +8,8 @@ import time
 import pytest
 import torch
 
-from portbench import control
-from portbench.harness import cell, check
-from portbench.harness.faults import DATA_FAULTS, FAULTS
+from portbench.harness import bg_train, cell, check, forecast
+from portbench.harness.faults import DATA_FAULTS
 from portbench.tests import tiny
 
 CPU = torch.device("cpu")
@@ -37,12 +36,12 @@ def test_sound_training_is_correct_at_tiny_limits(name, grad, change):
     assert run(name, loss1_rel=1e-5, grad_rel=grad, change_rel=change)["correct"]
 
 
-@pytest.mark.parametrize("name,fault", [("forecast_short.scene8", f) for f in FAULTS["forecast"]]
-                         + [("bg_train.pool8", f) for f in FAULTS["bg_train"]]
+@pytest.mark.parametrize("name,fault", [("forecast_short.scene8", f) for f in forecast.FAULTS]
+                         + [("bg_train.pool8", f) for f in bg_train.FAULTS]
                          + [("bg_train.loader8", f) for f in DATA_FAULTS])
 def test_fault_is_not_correct(name, fault):
-    kind = tiny.spec(name)["config"]["kind"]
-    line = run(name, dict(FAULTS[kind], **DATA_FAULTS)[fault])
+    runner = cell.runner(tiny.spec(name)["config"]["kind"])
+    line = run(name, dict(runner.FAULTS, **DATA_FAULTS)[fault])
     assert not line["correct"], line["checks"]
 
 
@@ -50,6 +49,6 @@ def test_fault_is_not_correct(name, fault):
                                   "bg_train.loader8"])
 def test_control_is_not_correct(name):
     s = tiny.spec(name)
-    numbers = control.control_numbers(s, SEED, CPU, emulate=True)
+    numbers = cell.runner(s["config"]["kind"]).control(s, SEED, CPU, emulate=True)
     ok, rows = check.judge(numbers, check.limits(name))
     assert not ok, rows
